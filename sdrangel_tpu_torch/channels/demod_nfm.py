@@ -116,11 +116,17 @@ def process(
     """(state, iq (..., block_in) complex64) -> (state', audio (..., block_out)).
 
     offset_hz / squelch_db / volume override the matching cfg fields for
-    this block (live settings changes, nfmdemod.cpp handleMessage)."""
-    offset = cfg.input_offset if offset_hz is None else offset_hz
+    this block (live settings changes, nfmdemod.cpp handleMessage). An
+    offset override goes through the float32 increment on the tensors'
+    device, as the JAX function's traced path does; without one the
+    configured offset takes the host float64 path."""
     squelch_db = cfg.squelch_db if squelch_db is None else squelch_db
-    nco_state, xm = nco.mix_block(
-        state.nco, x, nco.freq_to_increment(-offset, cfg.channel_rate))
+    if offset_hz is None:
+        inc = nco.freq_to_increment(-cfg.input_offset, cfg.channel_rate)
+    else:
+        offset = torch.as_tensor(offset_hz, dtype=torch.float32, device=x.device)
+        inc = nco.freq_to_increment_traced(-offset, cfg.channel_rate)
+    nco_state, xm = nco.mix_block(state.nco, x, inc)
     resamp_state, ci = resampler.resample_block(state.resamp, xm, cfg.resampler_plan)
     discri_state, demod, magsq = phasediscri.discriminator_delta(
         state.discri, ci, cfg.fm_scaling, approx=cfg.ref_atan2_approx)

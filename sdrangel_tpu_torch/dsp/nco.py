@@ -4,6 +4,11 @@ Reference: sdrbase/dsp/nco.{h,cpp} — integer phase accumulator, nextIQ()
 returning e^{+iφ}. The phase is held in int64 and masked to 32 bits after
 every add and multiply, which is exact uint32 wraparound; the wrapped phase
 is cast to float32 before the sin/cos, as in the JAX package.
+
+Increments come two ways, as in the JAX package: `freq_to_increment` on the
+host in float64 for a configured offset, and `freq_to_increment_traced` in
+float32 on the tensors' own device for per-block overrides (one per channel
+of a bank), so an override never waits for the host.
 """
 
 from __future__ import annotations
@@ -21,8 +26,8 @@ class NCOState(NamedTuple):
     phase: torch.Tensor  # (...,) int64 in [0, 2^32) — the wheel position
 
 
-def make_nco(device: torch.device) -> NCOState:
-    return NCOState(torch.zeros((), dtype=torch.int64, device=device))
+def make_nco(device: torch.device, batch_shape=()) -> NCOState:
+    return NCOState(torch.zeros(batch_shape, dtype=torch.int64, device=device))
 
 
 def freq_to_increment(freq, sample_rate) -> np.ndarray:
@@ -32,17 +37,35 @@ def freq_to_increment(freq, sample_rate) -> np.ndarray:
     return (inc & _MASK).astype(np.uint32)
 
 
+def freq_to_increment_traced(freq: torch.Tensor, sample_rate: float) -> torch.Tensor:
+    """The JAX `nco.freq_to_increment_traced` (nco.py:58-62) on tensors, as
+    it runs inside jit — which is how every JAX caller runs it: XLA turns the
+    division by the constant rate into a product with its f32 reciprocal, so
+    turns = remainder(f · f32(1/fs), 1) in f32, times 2^32, truncated to a
+    uint32 value held in int64. A tiny negative offset's f32 remainder
+    rounds to 1.0; 2^32 then saturates to 2^32 − 1 as JAX's uint32
+    conversion does on the CPU."""
+    recip = float(np.float32(1.0) / np.float32(sample_rate))
+    turns = torch.remainder(freq.to(torch.float32) * recip, 1.0)
+    inc = (turns * float(1 << _WHEEL_BITS)).to(torch.int64)
+    return torch.clamp(inc, max=_MASK)
+
+
 def nco_block(
     state: NCOState, increment, length: int
 ) -> tuple[NCOState, torch.Tensor]:
     """e^{+iφ[n]} for one block, φ[n] = φ0 + inc·(n+1): the reference NCO
     increments before it reads (nco.cpp nextIQ -> nextPhase).
 
-    increment: uint32 value(s) broadcast against state.phase.
-    Returns (state', iq (..., length) complex64).
+    increment: uint32 value(s) — host integers, or an int64 tensor (any
+    batch shape, e.g. from `freq_to_increment_traced`) — broadcast against
+    state.phase. Returns (state', iq (..., length) complex64).
     """
     dev = state.phase.device
-    inc = torch.as_tensor(np.asarray(increment, dtype=np.int64), device=dev)
+    if isinstance(increment, torch.Tensor):
+        inc = increment.to(device=dev, dtype=torch.int64) & _MASK
+    else:
+        inc = torch.as_tensor(np.asarray(increment, dtype=np.int64), device=dev)
     n = torch.arange(1, length + 1, dtype=torch.int64, device=dev)
     phase = (state.phase[..., None] + ((inc[..., None] * n) & _MASK)) & _MASK
     ang = phase.to(torch.float32) * np.float32(2.0 * np.pi / (1 << _WHEEL_BITS))

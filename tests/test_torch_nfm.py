@@ -213,3 +213,59 @@ def test_unported_squelch_modes_raise():
         pnfm.NFMConfig(channel_rate=48_000.0, ctcss_on=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pnfm.NFMConfig(channel_rate=48_000.0, delta_squelch=True)
+
+
+# offsets (Hz) for the f32 increment: negatives, offsets above fs/2, the
+# bank gear's residuals (bench.py:185-192) and tiny negatives whose f32
+# remainder rounds to 1.0 (JAX's uint32 conversion then saturates)
+OVERRIDE_OFFSETS = [0.0, 1440.0, -1440.0, 4320.0, -4320.0, 12_345.678, -12_345.678,
+                    24_000.0, 30_000.0, -30_000.0, 47_999.0, 96_001.5, -1e6, 1e-3, -1e-3,
+                    -1e-9, -0.0, 3.0e-5, -3.0e-5]
+
+
+@pytest.mark.parametrize("rate", [48_000.0, 156_250.0, 384_000.0])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_nco_override_increments_bit_equal_jax(rate, sign):
+    """Against the JAX function under jit, as every JAX caller runs it (XLA
+    then multiplies by the f32 reciprocal of the rate instead of dividing,
+    which moves some increments by one f32 step from the eager result)."""
+    f = sign * np.asarray(OVERRIDE_OFFSETS, np.float32)
+    traced = jax.jit(jnco.freq_to_increment_traced, static_argnums=1)
+    want = np.asarray(traced(jnp.asarray(f), rate)).astype(np.int64)
+    got = n(pnco.freq_to_increment_traced(t(f), rate))
+    np.testing.assert_array_equal(got, want)
+    edge = want[OVERRIDE_OFFSETS.index(-1e-9)]
+    assert edge == (0xFFFFFFFF if sign > 0 else 0)  # the saturated edge
+
+
+def _bank_cfg(**kw):
+    return dict(channel_rate=48_000.0, squelch_db=-60.0, squelch_gate_ms=5.0, block_in=4096, **kw)
+
+
+def _fm_bank(rng, offsets, size, rate=48_000.0):
+    """One FM carrier per channel at its offset, plus a little noise."""
+    n_ = np.arange(size)
+    out = []
+    for off in offsets:
+        ph = 2 * np.pi * off * n_ / rate + 2.5 * np.sin(2 * np.pi * 700.0 * n_ / rate)
+        x = 0.4 * np.exp(1j * ph) + 0.01 * (rng.standard_normal(size)
+                                              + 1j * rng.standard_normal(size))
+        out.append(x.astype(np.complex64))
+    return np.stack(out)
+
+
+def test_nfm_offset_override_matches_jax():
+    """A per-block offset override goes through the f32 increment on both
+    sides: ≥ 80 dB, and the NCO phases stay equal."""
+    rng = np.random.default_rng(11)
+    kw = _bank_cfg()
+    jc, pc = jnfm.NFMConfig(**kw), pnfm.NFMConfig(**kw)
+    js, ps = jnfm.make_state(jc), pnfm.make_state(pc, CPU)
+    run = jax.jit(jnfm.process, static_argnums=2)
+    for _ in range(2):
+        x = _fm_bank(rng, [4320.0], 4096)[0]
+        js, jy = run(js, jnp.asarray(x), jc, offset_hz=jnp.float32(4320.0))
+        ps, py = pnfm.process(ps, t(x), pc, offset_hz=4320.0)
+        assert np.any(np.asarray(jy) != 0.0)
+        assert agreement_db(np.asarray(jy), n(py)) >= 80.0
+    assert int(ps.nco.phase) == int(js.nco.phase)
