@@ -1,19 +1,31 @@
-"""Drive the PyTorch port's Rx product path once on one CUDA card.
+"""Drive the PyTorch port's Rx product path and its channel-bank gear once
+on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (each prints its own line; every number carries the card's name and
 power limit as nvidia-smi reports them):
   0. device and precision: the card, its power limit, the TF32 flags;
-  1. build: K1 (kernels/csrc/flat_decimate.cu) with nvcc for sm_90a;
+  1. build: K1 (kernels/csrc/flat_decimate.cu) and K1-TC
+     (kernels/csrc/flat_decimate_tc.cu) with nvcc for sm_90a;
   2. K1 against its plain twin on the card: i16 at ÷4/÷16/÷64 on the
      10,240,000-sample product block, f32 real legs, complex legs (inf/sup),
      three streamed blocks against one long block; per-block times;
+  2b. K1-TC against its plain version on the card: i16 cen at ÷4/÷16/÷64 on
+     the product block and on the 2^25-sample gear block, three streamed
+     blocks against one long block, the MXU counterpart against K1 on one
+     raw block; per-block times of K1-TC, K1, the plain version and conv1d;
   3. the product path: RxPipeline on cuda, 10 MS/s i16, ÷64 cen, NFM at
      +20 kHz, 8 blocks of continuous FM, timed twin, K1, K1, twin; K1
      launched once per block, the 1 kHz tone above 25 dB, and ≥ 80 dB
      agreement with the runs whose decimator is the plain twin;
-  4. the CLI on cuda at 768 kS/s ÷2 with the channel at +100 kHz.
+  4. the CLI on cuda at 768 kS/s ÷2 with the channel at +100 kHz;
+  5. the bank gear (parallel/sharded.py) at the bench's chainsharded width:
+     12.288 MS/s i16, 2^25-sample blocks, ÷64 cen on K1-TC, PFB-4, 16 NFM
+     (squelch −100 dB, gate 1 ms) at the bench's offsets; 3 continuous
+     blocks of FM carriers at two demods' offsets, timed plain, K1-TC,
+     K1-TC, plain; K1-TC launched once per block, the tone above 25 dB,
+     all 16 streams finite, ≥ 80 dB agreement with the plain-decimator runs.
 Then a JSON line of the kernels, and last the ok line. Any failed check
 raises: the script then exits non-zero and prints no ok line. It needs a
 card; without one it exits non-zero at once.
@@ -33,10 +45,19 @@ import time
 import numpy as np
 import torch
 
+import torch.nn.functional as F
+
 import sdrangel_tpu_torch.dsp.decimators as dec
 from sdrangel_tpu_torch.io import testsource, wav
 from sdrangel_tpu_torch.kernels import build
+from sdrangel_tpu_torch.kernels import decimator as kdec
 from sdrangel_tpu_torch.kernels.flat_decimate import flat_decimate, flat_decimate_reference
+from sdrangel_tpu_torch.kernels.flat_decimate_tc import (
+    flat_decimate_tc,
+    flat_decimate_tc_reference,
+)
+from sdrangel_tpu_torch.parallel import sharded
+from sdrangel_tpu_torch.profile_product import chainsharded_config, chainsharded_offsets
 from sdrangel_tpu_torch.runtime.engine import ChannelSpec, DeviceConfig, RxPipeline
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -45,6 +66,12 @@ PRODUCT_RATE = 10e6
 PRODUCT_BLOCK = 10_240_000  # RxPipeline's device block at 10 MS/s ÷64 NFM
 NFM = "sdrangel.channel.nfmdemod"
 DEVICE = "cuda"
+GEAR_RATE = 12_288_000.0  # bench.py chainsharded: 12.288 MS/s ÷64 -> 192 kHz
+GEAR_BLOCK = 1 << 25
+# published H100 SXM peaks at 700 W (NVIDIA's data sheet, dense): HBM bytes/s,
+# FP32 outside the tensor cores and dense TF32 FLOP/s
+HBM_BPS, FP32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
+TC_PASSES = 3  # K1-TC's TF32 passes (hi·hi, hi·lo, lo·hi)
 
 
 def check(ok: bool, what: str) -> None:
@@ -88,12 +115,42 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def fm_blocks(n_blocks: int, block: int, rate: float, carrier: float) -> list[np.ndarray]:
-    cfg = testsource.TestSourceConfig(
-        sample_rate=rate, carrier_freq=carrier, modulation="fm", tone_freq=1000.0,
-        fm_deviation=5000.0, amplitude=0.5)
-    return [testsource.to_iq_int16(testsource.generate(cfg, block, start_sample=b * block))
+def fm_blocks(n_blocks: int, block: int, rate: float, carrier: float | tuple[float, ...],
+              amplitude: float = 0.5) -> list[np.ndarray]:
+    """Continuous FM (1 kHz tone, 5 kHz deviation) at each carrier, summed."""
+    carriers = carrier if isinstance(carrier, tuple) else (carrier,)
+    cfgs = [testsource.TestSourceConfig(
+        sample_rate=rate, carrier_freq=c, modulation="fm", tone_freq=1000.0,
+        fm_deviation=5000.0, amplitude=amplitude) for c in carriers]
+    return [testsource.to_iq_int16(sum(testsource.generate(c, block, start_sample=b * block)
+                                       for c in cfgs))
             for b in range(n_blocks)]
+
+
+def decimator_bound(n_in: int, n_out: int, r: int, t_leg: int, tensor_cores: bool
+                    ) -> tuple[float, str]:
+    """(ms, what bounds it): the least time for one ÷r decimation of n_in i16
+    samples — its bytes (input read once, output written once) over HBM,
+    against its arithmetic over the peak of its type: 2·r·t_leg FLOP per
+    output and plane on FP32 for K1; TC_PASSES TF32 passes plus the
+    (t_leg − 1)-add diagonal sum on FP32 for K1-TC."""
+    t_bytes = (n_in * 4 + n_out * 8) / HBM_BPS
+    macs = n_out * 2 * r * t_leg
+    if tensor_cores:
+        t_ops = TC_PASSES * 2 * macs / TF32_FLOPS + n_out * 2 * (t_leg - 1) / FP32_FLOPS
+    else:
+        t_ops = 2 * macs / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def conv1d_planes(ext: torch.Tensor, legs: torch.Tensor):
+    """The library call computing the decimator: one F.conv1d over the f32
+    polyphase planes (made outside the timed call)."""
+    r = legs.shape[0]
+    planes = (ext.to(torch.float32) * (1.0 / 32768.0)).reshape(-1, r, 2).permute(2, 1, 0)
+    planes = planes.contiguous()
+    weight = legs[None].contiguous()
+    return lambda: F.conv1d(planes, weight)
 
 
 def phase_k1(dev: torch.device, tag: str) -> dict:
@@ -125,9 +182,14 @@ def phase_k1(dev: torch.device, tag: str) -> dict:
         if log2 == 6:
             timings["ms"] = time_ms(lambda: flat_decimate(ext, legs))
             timings["plain_ms"] = time_ms(lambda: flat_decimate_reference(ext, legs))
+            timings["library_ms"] = time_ms(conv1d_planes(ext, legs))
+            timings["bound_ms"], timings["bound_by"] = decimator_bound(
+                ext.shape[0], PRODUCT_BLOCK >> 6, 64, legs.shape[1], tensor_cores=False)
             print(f"phase 2 k1 time i16 cen k=6 block={PRODUCT_BLOCK}: K1 "
-                  f"{timings['ms']:.4f} ms, twin {timings['plain_ms']:.4f} ms per block "
-                  f"(CUDA events, 20 launches after 3 warm-up) [{tag}]", flush=True)
+                  f"{timings['ms']:.4f} ms, twin {timings['plain_ms']:.4f} ms, conv1d alone "
+                  f"{timings['library_ms']:.4f} ms per block (CUDA events, 20 launches after "
+                  f"3 warm-up); bound {timings['bound_ms']:.4f} ms by {timings['bound_by']} "
+                  f"[{tag}]", flush=True)
 
     x = (raw.to(torch.float32) * (1.0 / 32768.0)).contiguous()
     legs, _, _ = dec._device_legs(6, "cen", dev)
@@ -166,6 +228,72 @@ def phase_k1(dev: torch.device, tag: str) -> dict:
     print(f"phase 2 k1 streaming 3x{third} vs one block: max abs {err_stream:.3e} vs K1, "
           f"{err_stream_twin:.3e} vs twin [{tag}]", flush=True)
     return {"max_abs_err": worst, **timings}
+
+
+def phase_k1_tc(dev: torch.device, tag: str) -> dict:
+    """K1-TC against its plain Z-form version, at the product and gear blocks."""
+    rng = np.random.default_rng(4321)
+    worst = 0.0
+
+    def compare(name, got, want):
+        nonlocal worst
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite K1-TC output")
+        err = float((got - want).abs().max())
+        check(err <= ATOL, f"{name}: max abs {err:.3e} > {ATOL}")
+        worst = max(worst, err)
+        print(f"phase 2b k1-tc {name}: out {tuple(got.shape)} max_abs_err {err:.3e} "
+              f"(atol {ATOL}) [{tag}]", flush=True)
+
+    timings = {}
+    for block in (PRODUCT_BLOCK, GEAR_BLOCK):
+        raw = torch.from_numpy(rng.integers(-32768, 32767, size=(block, 2), endpoint=True,
+                                            dtype=np.int16)).to(dev)
+        for log2 in (2, 4, 6):
+            legs, _, _ = dec._device_legs(log2, "cen", dev)
+            tail = torch.from_numpy(rng.integers(-32768, 32767, endpoint=True, dtype=np.int16,
+                                                 size=(dec.flat_tail_len(log2), 2))).to(dev)
+            ext = torch.cat([tail, raw])
+            compare(f"i16 cen k={log2} block={block} vs plain", flat_decimate_tc(ext, legs),
+                    flat_decimate_tc_reference(ext, legs))
+            if log2 != 6:
+                continue
+            t = {"ms": time_ms(lambda: flat_decimate_tc(ext, legs)),
+                 "k1_ms": time_ms(lambda: flat_decimate(ext, legs)),
+                 "plain_ms": time_ms(lambda: flat_decimate_tc_reference(ext, legs)),
+                 "library_ms": time_ms(conv1d_planes(ext, legs))}
+            t["bound_ms"], t["bound_by"] = decimator_bound(
+                ext.shape[0], block >> 6, 64, legs.shape[1], tensor_cores=True)
+            print(f"phase 2b k1-tc time i16 cen k=6 block={block}: K1-TC {t['ms']:.4f} ms, "
+                  f"K1 {t['k1_ms']:.4f} ms, plain (Z-form) {t['plain_ms']:.4f} ms, conv1d alone "
+                  f"{t['library_ms']:.4f} ms per block (CUDA events, 20 launches after 3 "
+                  f"warm-up); K1-TC bound {t['bound_ms']:.4f} ms by {t['bound_by']} [{tag}]",
+                  flush=True)
+            timings[block] = t
+        if block == GEAR_BLOCK:
+            # the MXU counterpart against K1 on one raw block (HALO convention)
+            halo_raw = torch.cat([torch.zeros((kdec.HALO, 2), dtype=torch.int16, device=dev),
+                                  raw])
+            compare(f"decimate_cascade_fused_mxu vs decimate_cascade_fused (K1) k=6 "
+                    f"block={block}", kdec.decimate_cascade_fused_mxu(halo_raw, 6),
+                    kdec.decimate_cascade_fused(halo_raw, 6))
+            # three streamed blocks (raw int16 tail carried) equal one long block
+            legs, _, _ = dec._device_legs(6, "cen", dev)
+            tail_len = dec.flat_tail_len(6)
+            third = block // 4
+            ext = torch.cat([torch.zeros((tail_len, 2), dtype=torch.int16, device=dev),
+                             raw[:3 * third]])
+            parts = torch.cat([flat_decimate_tc(ext[i * third:(i + 1) * third + tail_len]
+                                                .contiguous(), legs) for i in range(3)])
+            long = flat_decimate_tc(ext, legs)
+            torch.cuda.synchronize()
+            err = float((parts - long).abs().max())
+            check(err == 0.0, f"K1-TC streamed vs long block differ by {err:.3e}")
+            compare(f"streaming 3x{third} vs one long block (plain)", parts,
+                    flat_decimate_tc_reference(ext, legs))
+            print(f"phase 2b k1-tc streaming 3x{third} vs one long block: max abs {err:.3e} "
+                  f"K1-TC vs K1-TC [{tag}]", flush=True)
+    return {"max_abs_err": worst, **timings[GEAR_BLOCK], "product": timings[PRODUCT_BLOCK]}
 
 
 def run_product(pipe: RxPipeline, blocks: list[np.ndarray]) -> tuple[np.ndarray, float]:
@@ -254,6 +382,92 @@ def phase_cli(tag: str) -> None:
     print("phase 4 cli stderr: " + proc.stderr.strip().replace("\n", " | "), flush=True)
 
 
+@contextlib.contextmanager
+def plain_tc_decimator():
+    """The bank gear with K1-TC's plain version as its decimator."""
+    real_kernel = sharded.flat_decimate_tc
+    sharded.flat_decimate_tc = flat_decimate_tc_reference
+    try:
+        yield
+    finally:
+        sharded.flat_decimate_tc = real_kernel
+
+
+def phase_bank(dev: torch.device, tag: str) -> int:
+    n_blocks = 3
+    cfg = chainsharded_config()
+    check(cfg.device_rate == GEAR_RATE and cfg.block == GEAR_BLOCK, "gear configuration")
+    offs = chainsharded_offsets(cfg)
+    idx, res = sharded.grid_split(cfg, offs)
+    # one carrier in each used grid channel, so every demod holds a strong
+    # signal: at demod 5's offset (grid 3) and demod 6's (grid 1)
+    tone_demods = (5, 6)
+    t0 = time.perf_counter()
+    blocks = fm_blocks(n_blocks, GEAR_BLOCK, GEAR_RATE,
+                       tuple(float(offs[k]) for k in tone_demods), amplitude=0.35)
+    print(f"phase 5 bank: generated {n_blocks} blocks of {GEAR_BLOCK} i16 samples on the host "
+          f"in {time.perf_counter() - t0:.2f} s (set-up, not timed); carriers at "
+          f"{[float(offs[k]) for k in tone_demods]} Hz; grid {idx.tolist()}, residuals "
+          f"{res.tolist()} Hz [{tag}]", flush=True)
+    t0 = time.perf_counter()
+    step, init_fn = sharded.build_sharded_step(cfg, dev)
+    res_t, idx_t = torch.from_numpy(res).to(dev), torch.from_numpy(idx).to(dev)
+    xs = [torch.from_numpy(b).to(dev) for b in blocks]  # the capture, resident on the card
+    torch.cuda.synchronize()
+    print(f"phase 5 bank: built and uploaded in {time.perf_counter() - t0:.2f} s [{tag}]",
+          flush=True)
+
+    def run():
+        state, carry = init_fn()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        audio = []
+        for x in xs:
+            state, a, carry = step(state, x, carry, res_t, idx_t)
+            audio.append(a)
+        out = torch.cat(audio, dim=-1).cpu().numpy()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - start
+
+    run()  # warm-up of both paths: cuFFT plans, the kernel library
+    with plain_tc_decimator():
+        run()
+    signal_s = n_blocks * GEAR_BLOCK / GEAR_RATE
+    seconds = {"K1-TC": [], "plain": []}
+    for path in ("plain", "K1-TC", "K1-TC", "plain"):  # alternated, so drift cancels
+        if path == "K1-TC":
+            flat_decimate_tc.launches = 0
+            audio, elapsed = run()
+            launches = flat_decimate_tc.launches
+            check(launches == n_blocks, f"K1-TC launched {launches} times for {n_blocks} blocks")
+        else:
+            with plain_tc_decimator():
+                plain_audio, elapsed = run()
+        seconds[path].append(elapsed)
+        print(f"phase 5 bank ({path}): {n_blocks} blocks in {elapsed:.4f} s = "
+              f"{elapsed / n_blocks * 1e3:.3f} ms/block, real-time factor "
+              f"{signal_s / elapsed:.2f} (capture resident on the card; audio fetched) "
+              f"[{tag}]", flush=True)
+
+    per_block = cfg.demod_cfg.resampler_plan.block_out
+    check(audio.shape == (16, n_blocks * per_block), f"bank audio shape {audio.shape}")
+    check(bool(np.isfinite(audio).all()), "non-finite bank audio")
+    snrs = [tone_snr(audio[k, audio.shape[1] // 2:].astype(np.float64), 1000.0, 48_000.0)
+            for k in tone_demods]
+    check(min(snrs) > 25.0, f"bank tone SNR {snrs} dB")
+    agree = agreement_db(plain_audio, audio)
+    per_channel = [agreement_db(plain_audio[k], audio[k]) for k in range(16)]
+    check(agree >= 80.0, f"K1-TC gear vs plain-decimator gear audio agreement {agree:.1f} dB")
+    tc_s, plain_s = (sum(seconds[k]) / 2 for k in ("K1-TC", "plain"))
+    print(f"phase 5 bank: K1-TC path {tc_s / n_blocks * 1e3:.3f} ms/block (real-time factor "
+          f"{signal_s / tc_s:.2f}), plain-decimator path {plain_s / n_blocks * 1e3:.3f} "
+          f"ms/block ({signal_s / plain_s:.2f}), mean of 2 runs each; K1-TC launches "
+          f"{launches} in the last K1-TC run; tone SNR {snrs[0]:.2f} / {snrs[1]:.2f} dB "
+          f"(demods {tone_demods}); audio agreement {agree:.2f} dB over the bank, "
+          f"{min(per_channel):.2f} dB at the worst channel [{tag}]", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -282,11 +496,15 @@ def main() -> int:
     print("phase 1 build: dynamic shared memory per block "
           + ", ".join(f"k={k} {lib.sdr_flat_decimate_smem_bytes(1 << k, dec.flat_legs(k).shape[1], c)} B"
                       f"{' (complex legs)' if c else ''}" for k in (2, 4, 6) for c in (0, 1))
+          + "; K1-TC " + ", ".join(f"k={k} {lib.sdr_flat_decimate_tc_smem_bytes(1 << k)} B"
+                                   for k in (2, 4, 6))
           + f" [{tag}]", flush=True)
 
     k1 = phase_k1(dev, tag)
+    tc = phase_k1_tc(dev, tag)
     launches = phase_product(pipe, tag)
     phase_cli(tag)
+    tc_launches = phase_bank(dev, tag)
 
     print(tag, flush=True)
     print(json.dumps({"kernels": [{
@@ -298,6 +516,21 @@ def main() -> int:
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
+        "library_ms": k1["library_ms"],
+    }, {
+        "name": "flat_decimate_tc",
+        "route": "cuda",
+        "source": "sdrangel_tpu_torch/kernels/csrc/flat_decimate_tc.cu",
+        "replaces": "sdrangel_tpu/pallas/decimator.py:165",
+        "launches": tc_launches,
+        "max_abs_err": tc["max_abs_err"],
+        "ms": tc["ms"],
+        "plain_ms": tc["plain_ms"],
+        "bound_ms": tc["bound_ms"],
+        "bound_by": tc["bound_by"],
+        "library_ms": tc["library_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

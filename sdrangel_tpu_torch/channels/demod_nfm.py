@@ -93,14 +93,15 @@ class NFMState(NamedTuple):
     bandpass: firdesign.FirState
 
 
-def make_state(cfg: NFMConfig, device: torch.device) -> NFMState:
+def make_state(cfg: NFMConfig, device: torch.device, batch_shape=()) -> NFMState:
+    """A channel's state; with batch_shape (C,), a bank of C channels."""
     return NFMState(
-        nco=nco.make_nco(device),
-        resamp=resampler.init_state(cfg.resampler_plan, device),
-        discri=phasediscri.make_state(device),
-        mavg=movingavg.make_state(32, device),  # nfmdemod.h m_movingAverage
-        squelch=squelch.make_state(cfg.squelch_gate_samples, device),
-        bandpass=firdesign.make_state(len(cfg.bandpass_taps), device),
+        nco=nco.make_nco(device, batch_shape),
+        resamp=resampler.init_state(cfg.resampler_plan, device, batch_shape),
+        discri=phasediscri.make_state(device, batch_shape),
+        mavg=movingavg.make_state(32, device, batch_shape),  # nfmdemod.h m_movingAverage
+        squelch=squelch.make_state(cfg.squelch_gate_samples, device, batch_shape),
+        bandpass=firdesign.make_state(len(cfg.bandpass_taps), device, batch_shape),
     )
 
 
@@ -116,11 +117,12 @@ def process(
     """(state, iq (..., block_in) complex64) -> (state', audio (..., block_out)).
 
     offset_hz / squelch_db / volume override the matching cfg fields for
-    this block (live settings changes, nfmdemod.cpp handleMessage). An
-    offset override goes through the float32 increment on the tensors'
-    device, as the JAX function's traced path does; without one the
+    this block (live settings changes, nfmdemod.cpp handleMessage). Each is
+    a number, or a tensor of the batch shape (one value per channel of a
+    bank). An offset override goes through the float32 increment on the
+    tensors' device, as the JAX function's traced path does; without one the
     configured offset takes the host float64 path."""
-    squelch_db = cfg.squelch_db if squelch_db is None else squelch_db
+    squelch_db = cfg.squelch_db if squelch_db is None else _per_channel(squelch_db, x)
     if offset_hz is None:
         inc = nco.freq_to_increment(-cfg.input_offset, cfg.channel_rate)
     else:
@@ -136,10 +138,17 @@ def process(
         cfg.squelch_gate_samples)
     bp_state, audio = firdesign.fir_apply(
         state.bandpass, gated, _device_bandpass(cfg, x.device))
-    vol = cfg.volume if volume is None else volume
+    vol = cfg.volume if volume is None else _per_channel(volume, x)
     audio = audio * (0.0 if cfg.audio_mute else vol)
     return NFMState(nco_state, resamp_state, discri_state, mavg_state,
                     squelch_state, bp_state), audio
+
+
+def _per_channel(value, x: torch.Tensor):
+    """A per-channel tensor override broadcast along the sample axis."""
+    if isinstance(value, torch.Tensor) and value.dim():
+        return value.to(x.device)[..., None]
+    return value
 
 
 def meters(state: NFMState, cfg: NFMConfig, dyn: dict) -> dict:

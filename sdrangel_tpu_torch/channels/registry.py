@@ -16,6 +16,9 @@ class ChannelKind:
     config_cls: type
     make_state: Callable[..., Any]
     process: Callable[..., Any]
+    # "audio" (48 kHz demod) or "data" (symbols, video, I/Q); the bank gear
+    # takes audio kinds only
+    output: str = "audio"
     # process kwargs a caller may override per block ("offset_hz",
     # "squelch_db", "volume"), the applySettings-on-a-running-channel path
     dynamic_fields: frozenset = frozenset()

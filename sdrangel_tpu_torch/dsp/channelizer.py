@@ -6,12 +6,18 @@ Reference: sdrbase/dsp/downchannelizer.{h,cpp} — `createFilterChain`
 leaving a residual offset for the channel NCO; `feed` (:50-91) runs the
 stages. Here each stage is a ±fs/4 rotation plus an order-48 ÷2 half-band
 (`decimators.hb_decimate2`) on the whole block.
+
+A bank of channels shares one stage depth; each channel's rotation signs
+are per-channel data, so one batched cascade runs the whole bank
+(`channelize_bank`), or only its distinct sign paths over one shared
+stream (`channelize_bank_unique`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from . import decimators as dec
@@ -65,9 +71,9 @@ def plan_channel(
 
 
 def init_state(
-    n_stages: int, device: torch.device, order: int = DOWNCHANNELIZER_ORDER
+    n_stages: int, device: torch.device, order: int = DOWNCHANNELIZER_ORDER, batch_shape=(),
 ) -> dec.CascadeState:
-    return dec.init_state(n_stages, device, order)
+    return dec.init_state(n_stages, device, order, batch_shape)
 
 
 def channelize(
@@ -76,3 +82,52 @@ def channelize(
 ) -> tuple[dec.CascadeState, torch.Tensor]:
     """One channel: x (..., T) complex64 -> (state', y (..., T / 2^stages))."""
     return dec.run_stages(state, x, plan.signs, order)
+
+
+def _stage_rotation(signs: np.ndarray, length: int, device: torch.device) -> torch.Tensor | None:
+    """Per-channel rotation (C, length) for one stage of a bank; None when
+    every channel takes the centre half. signs: (C,) in {-1, 0, +1}."""
+    if not np.any(signs):
+        return None
+    if length % 4:
+        raise ValueError(f"block length {length} must be a multiple of 4")
+    n = np.arange(4)
+    base = np.stack([np.exp(1j * s * np.pi / 2.0 * n) for s in signs]).astype(np.complex64)
+    return torch.from_numpy(np.tile(base, (1, length // 4))).to(device)
+
+
+def channelize_bank(
+    state: dec.CascadeState, x: torch.Tensor, signs: np.ndarray,
+    order: int = DOWNCHANNELIZER_ORDER,
+) -> tuple[dec.CascadeState, torch.Tensor]:
+    """A bank with a shared stage depth. x (C, T) complex64 — one stream per
+    channel (or the same block broadcast); signs (C, n_stages) from each
+    channel's plan. Returns (state', y (C, T / 2^n_stages))."""
+    taps = dec._device_taps(order, x.device)
+    signs = np.asarray(signs)
+    tails = list(state.tails)
+    y = x
+    for k in range(signs.shape[1]):
+        rot = _stage_rotation(signs[:, k], y.shape[-1], x.device)
+        if rot is not None:
+            y = y * rot
+        tails[k], y = dec.hb_decimate2(tails[k], y, taps)
+    return dec.CascadeState(tuple(tails)), y
+
+
+def channelize_bank_unique(
+    state: dec.CascadeState, bb: torch.Tensor, signs: np.ndarray,
+    order: int = DOWNCHANNELIZER_ORDER,
+) -> tuple[dec.CascadeState, torch.Tensor]:
+    """A bank over ONE shared stream, run once per distinct sign path and
+    gathered back to channel order at the decimated rate. bb (T,) complex64;
+    signs (C, n_stages); state has leading dim U = `unique_paths(signs)`.
+    Returns (state', y (C, T / 2^n_stages))."""
+    uniq, inverse = np.unique(np.asarray(signs), axis=0, return_inverse=True)
+    xb = bb.expand(len(uniq), bb.shape[-1])
+    state, y_u = channelize_bank(state, xb, uniq, order)
+    return state, y_u[torch.from_numpy(inverse.reshape(-1)).to(bb.device)]
+
+
+def unique_paths(signs: np.ndarray) -> int:
+    return len(np.unique(np.asarray(signs), axis=0))

@@ -92,10 +92,10 @@ def hb_decimate2(
 
 
 def init_state(
-    log2_decim: int, device: torch.device, order: int = DECIMATORS_ORDER,
+    log2_decim: int, device: torch.device, order: int = DECIMATORS_ORDER, batch_shape=(),
 ) -> CascadeState:
     return CascadeState(tuple(
-        torch.zeros(order - 2, dtype=torch.complex64, device=device)
+        torch.zeros((*batch_shape, order - 2), dtype=torch.complex64, device=device)
         for _ in range(log2_decim)
     ))
 

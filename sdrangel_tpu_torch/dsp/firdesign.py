@@ -78,8 +78,8 @@ class FirState(NamedTuple):
     tail: torch.Tensor  # (..., ntaps-1)
 
 
-def make_state(ntaps: int, device: torch.device) -> FirState:
-    return FirState(torch.zeros(ntaps - 1, dtype=torch.float32, device=device))
+def make_state(ntaps: int, device: torch.device, batch_shape=()) -> FirState:
+    return FirState(torch.zeros((*batch_shape, ntaps - 1), dtype=torch.float32, device=device))
 
 
 def fir_apply(

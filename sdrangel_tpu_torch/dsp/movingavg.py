@@ -14,8 +14,8 @@ class MovingAvgState(NamedTuple):
     window: torch.Tensor  # (..., N) last N inputs, oldest first
 
 
-def make_state(length: int, device: torch.device) -> MovingAvgState:
-    return MovingAvgState(torch.zeros(length, dtype=torch.float32, device=device))
+def make_state(length: int, device: torch.device, batch_shape=()) -> MovingAvgState:
+    return MovingAvgState(torch.zeros((*batch_shape, length), dtype=torch.float32, device=device))
 
 
 def moving_average(

@@ -16,8 +16,8 @@ class DiscriminatorState(NamedTuple):
     prev: torch.Tensor  # (...,) complex64 — previous sample
 
 
-def make_state(device: torch.device) -> DiscriminatorState:
-    return DiscriminatorState(torch.ones((), dtype=torch.complex64, device=device))
+def make_state(device: torch.device, batch_shape=()) -> DiscriminatorState:
+    return DiscriminatorState(torch.ones(batch_shape, dtype=torch.complex64, device=device))
 
 
 # float32 constants of the reference, as Python floats holding the f32 values

@@ -144,8 +144,9 @@ def make_plan(
     )
 
 
-def init_state(plan: ResamplerPlan, device: torch.device) -> ResamplerState:
-    return ResamplerState(torch.zeros(plan.ntaps - 1, dtype=torch.complex64, device=device))
+def init_state(plan: ResamplerPlan, device: torch.device, batch_shape=()) -> ResamplerState:
+    return ResamplerState(torch.zeros(
+        (*batch_shape, plan.ntaps - 1), dtype=torch.complex64, device=device))
 
 
 @functools.lru_cache(maxsize=None)

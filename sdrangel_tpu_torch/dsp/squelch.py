@@ -18,10 +18,10 @@ class SquelchState(NamedTuple):
     delay: torch.Tensor  # (..., gate) delayed audio tail
 
 
-def make_state(gate: int, device: torch.device) -> SquelchState:
+def make_state(gate: int, device: torch.device, batch_shape=()) -> SquelchState:
     return SquelchState(
-        torch.zeros((), dtype=torch.float32, device=device),
-        torch.zeros(gate, dtype=torch.float32, device=device),
+        torch.zeros(batch_shape, dtype=torch.float32, device=device),
+        torch.zeros((*batch_shape, gate), dtype=torch.float32, device=device),
     )
 
 

@@ -98,6 +98,10 @@ def library() -> ctypes.CDLL:
     ]
     lib.sdr_flat_decimate_smem_bytes.restype = i64
     lib.sdr_flat_decimate_smem_bytes.argtypes = [i32, i32, i32]
+    lib.sdr_flat_decimate_tc.restype = i32
+    lib.sdr_flat_decimate_tc.argtypes = [p, i64, p, i32, i32, p, i64, p]
+    lib.sdr_flat_decimate_tc_smem_bytes.restype = i64
+    lib.sdr_flat_decimate_tc_smem_bytes.argtypes = [i32]
     lib.sdr_cuda_error_string.restype = ctypes.c_char_p
     lib.sdr_cuda_error_string.argtypes = [i32]
     return lib

@@ -1,17 +1,22 @@
-"""Where the product path's time goes on the card.
+"""Where the product path's or the bank gear's time goes on the card.
 
     python -m sdrangel_tpu_torch.profile_product [--channels N] [--blocks B]
+    python -m sdrangel_tpu_torch.profile_product --gear bank [--blocks B]
 
-The product configuration of chip_smoke.py (10 MS/s i16, ÷64 cen, NFM at
-+20 kHz; with --channels N, N NFM channels spread over ±60 kHz). After a
-warm-up it prints:
-  * the per-layer split: each stage of RxPipeline.step run on its own and
+--gear product (the default): the product configuration of chip_smoke.py
+(10 MS/s i16, ÷64 cen, NFM at +20 kHz; with --channels N, N NFM channels
+spread over ±60 kHz). --gear bank: the bank gear (parallel/sharded.py) at
+the bench's chainsharded width — 12.288 MS/s i16 in 2^25-sample blocks,
+÷64 cen on K1-TC, PFB-4, 16 NFM at the bench's offsets, on the bench's
+input (uniform int16 in [−2048, 2048) from a seed). After a warm-up it
+prints:
+  * the per-layer split: each stage of the step run on its own and
     synchronized (host clock, launch overhead included) — upload (host copy
-    into pinned memory + H2D), K1 (ingest + ÷64), channelizer, NFM, taps,
-    fetch of the outputs;
-  * the steady loop as RxPipeline.run drives it: seconds per block; then,
-    from torch.profiler over a second run, the device time by kernel and
-    the device's busy share of the steady loop's wall time.
+    into pinned memory + H2D), the ÷64 decimator, channel selection
+    (channelizer or PFB), the NFM demods, taps, fetch of the outputs;
+  * the steady loop (upload, step, fetch one block behind): seconds per
+    block; then, from torch.profiler over a second run, the device time by
+    kernel and the device's busy share of the steady loop's wall time.
 Needs a CUDA card.
 """
 
@@ -27,12 +32,32 @@ from torch.autograd import DeviceType
 
 from .dsp import channelizer as chan
 from .dsp import decimators as dec
+from .dsp import pfb as pfbmod
 from .dsp import scope as dsp_scope
 from .dsp import spectrum as dsp_spectrum
 from .io import testsource
+from .parallel import sharded
 from .runtime.engine import ChannelSpec, DeviceConfig, RxPipeline, _to_host
 
 RATE = 10e6
+NFM = sharded.NFM_URI
+
+
+def chainsharded_config() -> sharded.ShardedPipelineConfig:
+    """bench.py -t chainsharded (bench.py:141-217): 12.288 MS/s i16, 2^25
+    blocks, ÷64 cen, PFB-4, 16 NFM (squelch −100 dB, gate 1 ms), one card."""
+    return sharded.ShardedPipelineConfig(
+        n_time=1, n_channel=1, device_rate=12_288_000.0, log2_decim=6, block=1 << 25,
+        pfb_m=4, bank=(sharded.BankGroup(NFM, 16, {"squelch_db": -100.0,
+                                                   "squelch_gate_ms": 1.0}),))
+
+
+def chainsharded_offsets(cfg: sharded.ShardedPipelineConfig) -> np.ndarray:
+    """bench.py:185-192: 4 demods per grid channel, distinct residuals."""
+    grid = cfg.baseband_rate / cfg.pfb_m
+    leaf = cfg.baseband_rate / 8.0
+    jit4 = (-0.18 * leaf, -0.06 * leaf, 0.06 * leaf, 0.18 * leaf)
+    return np.array([(k % 4 - 1.5) * grid * 2 + jit4[k // 4] for k in range(16)])
 
 
 def _timed(fn):
@@ -75,14 +100,111 @@ def layer_split(pipe: RxPipeline, blocks: list[np.ndarray]) -> dict[str, float]:
     return totals
 
 
+def _upload(raw: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(raw).pin_memory().to(device, non_blocking=True)
+
+
+def bank_split(cfg, step, init_fn, blocks, res, idx) -> dict[str, float]:
+    """Mean synchronized wall ms per stage of the bank gear's step."""
+    dev = torch.device("cuda")
+    state, carry = init_fn()
+    demod = cfg.demod_cfg
+    kind = sharded.REGISTRY[NFM]
+    h = pfbmod.prototype(cfg.pfb_m, cfg.pfb_taps)
+    totals: dict[str, float] = {}
+
+    def add(name, ms):
+        totals[name] = totals.get(name, 0.0) + ms / len(blocks)
+
+    for raw_np in blocks:
+        x, ms = _timed(lambda: _upload(raw_np, dev))
+        add("upload (pin + H2D)", ms)
+        bb, ms = _timed(lambda: sharded._cascade_with_halo(x, carry, cfg.log2_decim, "cen"))
+        add("÷64: raw tail + block → K1-TC", ms)
+        (_, ych), ms = _timed(lambda: pfbmod.analyze(state[1], bb, cfg.pfb_m, h))
+        add("PFB-4 analysis", ms)
+        xb, ms = _timed(lambda: ych.index_select(-1, idx).t())
+        add("grid-channel select", ms)
+        _, ms = _timed(lambda: kind.process(state[0][0][1], xb, demod, offset_hz=res))
+        add("NFM bank (16 channels, one batched call)", ms)
+        (state, audio, carry), _ = _timed(lambda: step(state, x, carry, res, idx))
+        _, ms = _timed(lambda: audio.cpu().numpy())
+        add("fetch audio", ms)
+    return totals
+
+
+def run_bank(cfg, step, init_fn, blocks, res, idx):
+    """The steady loop: upload, step, fetch one block behind."""
+    dev = torch.device("cuda")
+    state, carry = init_fn()
+    pending = None
+    for raw_np in blocks:
+        state, audio, carry = step(state, _upload(raw_np, dev), carry, res, idx)
+        if pending is not None:
+            pending.cpu().numpy()
+        pending = audio
+    pending.cpu().numpy()
+
+
+def main_bank(n_blocks: int) -> int:
+    cfg = chainsharded_config()
+    idx_np, res_np = sharded.grid_split(cfg, chainsharded_offsets(cfg))
+    step, init_fn = sharded.build_sharded_step(cfg, "cuda")
+    res = torch.from_numpy(res_np).cuda()
+    idx = torch.from_numpy(idx_np).to(torch.int64).cuda()
+    rng = np.random.default_rng(7)
+    blocks = [rng.integers(-2048, 2048, size=(cfg.block, 2), dtype=np.int16)
+              for _ in range(n_blocks)]
+    name = torch.cuda.get_device_name(0)
+    signal_s = cfg.block / cfg.device_rate
+    print(f"{name}: bank gear, 12.288 MS/s ÷64 → PFB-4 → 16 NFM, block {cfg.block} "
+          f"({signal_s:.4f} s of signal), {n_blocks} blocks", flush=True)
+    run_bank(cfg, step, init_fn, blocks[:2], res, idx)  # warm-up
+
+    for stage, ms in bank_split(cfg, step, init_fn, blocks, res, idx).items():
+        print(f"layer {stage}: {ms:.3f} ms/block (synchronized)", flush=True)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_bank(cfg, step, init_fn, blocks, res, idx)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"steady run: {wall / n_blocks * 1e3:.3f} ms/block, real-time factor "
+          f"{n_blocks * signal_s / wall:.2f}", flush=True)
+    _device_time(lambda: run_bank(cfg, step, init_fn, blocks, res, idx), n_blocks, wall)
+    return 0
+
+
+def _device_time(run, n_blocks: int, wall: float) -> None:
+    """Device time by kernel from a profiled run of the loop; the busy share
+    is taken against the unprofiled steady wall time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / n_blocks / 1e3
+    print(f"device busy {busy_ms:.3f} ms/block = {100 * busy_ms / (wall / n_blocks * 1e3):.1f}% "
+          f"of the steady run's wall time; {sum(e.count for e in kernels) // n_blocks} "
+          f"device operations per block", flush=True)
+    for e in kernels[:15]:
+        print(f"  {e.self_device_time_total / n_blocks / 1e3:9.4f} ms/block "
+              f"{e.count // n_blocks:5d}x  {e.key[:100]}", flush=True)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="sdrangel_tpu_torch.profile_product")
+    p.add_argument("--gear", choices=("product", "bank"), default="product")
     p.add_argument("--channels", type=int, default=1)
     p.add_argument("--blocks", type=int, default=6)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_product needs a CUDA card", file=sys.stderr)
         return 1
+    if args.gear == "bank":
+        return main_bank(args.blocks)
     offsets = np.linspace(-60e3, 60e3, args.channels) if args.channels > 1 else [20e3]
     pipe = RxPipeline(
         DeviceConfig(RATE, log2_decim=6),
@@ -108,22 +230,7 @@ def main(argv=None) -> int:
     print(f"steady run: {wall / args.blocks * 1e3:.3f} ms/block, real-time factor "
           f"{args.blocks * pipe.device_block / RATE / wall:.2f}", flush=True)
 
-    # device time by kernel from a profiled run of the same loop; the busy
-    # share is taken against the unprofiled steady wall time above
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        list(pipe.run(lambda b, n: blocks[b], args.blocks))
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / args.blocks / 1e3
-    print(f"device busy {busy_ms:.3f} ms/block = {100 * busy_ms / (wall / args.blocks * 1e3):.1f}% "
-          f"of the steady run's wall time; {sum(e.count for e in kernels) // args.blocks} "
-          f"device operations per block", flush=True)
-    for e in kernels[:15]:
-        print(f"  {e.self_device_time_total / args.blocks / 1e3:9.4f} ms/block "
-              f"{e.count // args.blocks:5d}x  {e.key[:100]}", flush=True)
+    _device_time(lambda: list(pipe.run(lambda b, n: blocks[b], args.blocks)), args.blocks, wall)
     return 0
 
 

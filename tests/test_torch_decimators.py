@@ -9,6 +9,8 @@ bound of tests/test_reference_golden.py. K1 itself against the twin is in
 tests/test_torch_kernels_cuda.py (needs a card).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +22,9 @@ from sdrangel_tpu.pallas import decimator as pk
 from sdrangel_tpu.runtime import corrections as jcorr
 from sdrangel_tpu_torch.dsp import decimators as pdec
 from sdrangel_tpu_torch.dsp import types as ptypes
+from sdrangel_tpu_torch.kernels import decimator as kdec
 from sdrangel_tpu_torch.kernels.flat_decimate import flat_decimate
+from sdrangel_tpu_torch.kernels.flat_decimate_tc import flat_decimate_tc
 from sdrangel_tpu_torch.runtime import corrections as pcorr
 from torch_port_util import CPU, fit_snr, load_golden_iq, n, t
 
@@ -35,19 +39,83 @@ def _legs(log2):
     return t(pdec.flat_legs(log2))
 
 
+@functools.lru_cache(maxsize=None)
+def _pallas_case(form, log2, size, tile_out, seed):
+    """(raw, Pallas kernel output in interpret mode), shared by the tests of
+    K1's and K1-TC's plain versions so each Pallas run happens once."""
+    raw = _raw(np.random.default_rng(seed), size + pk.HALO)
+    fused = pk.decimate_cascade_fused if form == "vpu" else pk.decimate_cascade_fused_mxu
+    return raw, np.asarray(fused(raw, log2_decim=log2, tile_out=tile_out, interpret=True))
+
+
 @pytest.mark.parametrize("log2", [2, 6])
 @pytest.mark.parametrize("form", ["vpu", "mxu"])
 def test_twin_matches_pallas_kernels(log2, form):
     """HALO convention: the Pallas input raw[HALO − r·(t_leg−1):] is K1's ext."""
-    rng = np.random.default_rng(5)
     size = 1 << 16
-    raw = _raw(rng, size + pk.HALO)
-    fused = pk.decimate_cascade_fused if form == "vpu" else pk.decimate_cascade_fused_mxu
-    ref = np.asarray(fused(raw, log2_decim=log2, tile_out=size >> log2, interpret=True))
+    raw, ref = _pallas_case(form, log2, size, size >> log2, 5)
     ext = t(raw[pk.HALO - pdec.flat_tail_len(log2):])
     out = n(flat_decimate(ext, _legs(log2)))
     assert out.shape == (size >> log2, 2)
     np.testing.assert_allclose(out.T, ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("log2,size,tile_out", [
+    (2, 1 << 16, 1 << 14), (6, 1 << 16, 1 << 10),
+    (6, 1 << 16, 1 << 8),  # the Pallas kernel over 4 tiles (test_pallas.py's multi-tile case)
+])
+@pytest.mark.parametrize("entry", ["tc_plain", "mxu_counterpart", "vpu_counterpart"])
+def test_port_decimators_match_pallas_mxu(log2, size, tile_out, entry):
+    """K1-TC's plain Z-form version, and the port's kernels/decimator.py
+    counterparts under the JAX names, against the Pallas MXU kernel."""
+    raw, ref = _pallas_case("mxu", log2, size, tile_out, 5 if tile_out == size >> log2 else 8)
+    if entry == "tc_plain":
+        out = n(flat_decimate_tc(t(raw[pk.HALO - pdec.flat_tail_len(log2):]), _legs(log2))).T
+    elif entry == "mxu_counterpart":
+        out = n(kdec.decimate_cascade_fused_mxu(t(raw), log2))
+    else:
+        out = n(kdec.decimate_cascade_fused(t(raw), log2))
+    assert out.shape == ref.shape == (2, size >> log2)
+    np.testing.assert_allclose(out, ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("log2", [2, 6])
+def test_reference_equivalent_matches_jax(log2):
+    raw, _ = _pallas_case("mxu", log2, 1 << 16, 1 << (16 - log2), 5)
+    np.testing.assert_allclose(n(kdec.reference_equivalent(raw, log2)),
+                               pk.reference_equivalent(raw, log2), atol=ATOL)
+
+
+def _tf32(x):
+    """float32 rounded to TF32 (10 mantissa bits), nearest, ties away: cvt.rna."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@pytest.mark.parametrize("log2", [2, 6])
+def test_tc_three_pass_split_keeps_f32_fidelity(log2):
+    """K1-TC's arithmetic, emulated: int16 = 256·hi + lo, legs = TF32 hi +
+    TF32 remainder, the passes hi·hi + hi·lo + lo·hi. On full-scale random
+    int16 it stays within 2e-5 of the exact float64 result, as the
+    kernel's source note bounds it (7.5e-6 worst case at ÷64)."""
+    rng = np.random.default_rng(90 + log2)
+    legs = pdec.flat_legs(log2)
+    r, t_leg = legs.shape
+    l_hi = _tf32(legs).astype(np.float64)
+    l_lo = _tf32(legs - _tf32(legs)).astype(np.float64)
+    x = rng.integers(-32768, 32767, size=(r * (t_leg - 1 + 512), 2), endpoint=True)
+    planes = x.reshape(-1, r, 2)  # planes[w, j, c] = x[r·w + j, c]
+    hi, lo = (planes >> 8) / 128.0, (planes & 0xFF) / 32768.0
+
+    def zsum(p, l):  # y[m, c] = Σ_t Σ_j l[j, t]·p[m + t, j, c]
+        z = np.einsum("wjc,jt->wtc", p, l)
+        return sum(z[tt:tt + 512, tt] for tt in range(t_leg))
+
+    exact = zsum(planes / 32768.0, legs.astype(np.float64))
+    emulated = zsum(hi, l_hi + l_lo) + zsum(lo, l_hi)
+    assert np.abs(emulated - exact).max() <= ATOL
+    one_pass = zsum(_tf32(planes / 32768.0).astype(np.float64), l_hi)
+    assert np.abs(one_pass - exact).max() > ATOL  # plain TF32 would not do
 
 
 def _complex_blocks(rng, n_blocks, size):

@@ -1,5 +1,5 @@
-"""K1 on the card against its plain twin, and the port's pipeline on the
-card against the same pipeline on the CPU. Marked `cuda`: they skip without
+"""K1 and K1-TC on the card against their plain versions, and the port's
+pipeline on the card against the same pipeline on the CPU. Marked `cuda`: they skip without
 a card. Run on a machine with one:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q -o addopts=""
@@ -13,7 +13,12 @@ import torch
 
 from sdrangel_tpu_torch.dsp import decimators as pdec
 from sdrangel_tpu_torch.io import testsource
+from sdrangel_tpu_torch.kernels import decimator as kdec
 from sdrangel_tpu_torch.kernels.flat_decimate import flat_decimate, flat_decimate_reference
+from sdrangel_tpu_torch.kernels.flat_decimate_tc import (
+    flat_decimate_tc,
+    flat_decimate_tc_reference,
+)
 from sdrangel_tpu_torch.runtime import engine as peng
 from torch_port_util import agreement_db, n, t
 
@@ -25,7 +30,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 runs only there")
+        pytest.skip("needs a CUDA card: K1 and K1-TC run only there")
     peng.pin_f32_precision()  # the twin's conv1d must not run in TF32
     return torch.device("cuda")
 
@@ -86,3 +91,64 @@ def test_pipeline_on_card_matches_cpu(cuda_device, frontend):
     got, want = np.concatenate(got), np.concatenate(want)
     assert np.any(want != 0.0)
     assert agreement_db(want, got) >= 80.0
+
+
+def _raw_ext(rng, log2, outputs, device):
+    shape = ((outputs << log2) + pdec.flat_tail_len(log2), 2)
+    return t(rng.integers(-32768, 32767, size=shape, endpoint=True, dtype=np.int16)).to(device)
+
+
+@pytest.mark.parametrize("log2,outputs", [
+    (1, 4096), (2, 1 << 16), (3, 4096), (4, 4096), (5, 4096), (6, 4096),
+    (6, 1001),  # a ragged last tile
+])
+def test_k1_tc_matches_plain_on_card(cuda_device, log2, outputs):
+    rng = np.random.default_rng(60 + log2)
+    ext = _raw_ext(rng, log2, outputs, cuda_device)
+    legs, _, _ = pdec._device_legs(log2, "cen", cuda_device)
+    launches = flat_decimate_tc.launches
+    out = flat_decimate_tc(ext, legs)
+    torch.cuda.synchronize()
+    assert flat_decimate_tc.launches == launches + 1
+    assert out.shape == (outputs, 2)
+    np.testing.assert_allclose(n(out), n(flat_decimate_tc_reference(ext, legs)), atol=ATOL)
+    np.testing.assert_allclose(n(out), n(flat_decimate(ext, legs)), atol=ATOL)
+
+
+def test_k1_tc_streamed_equals_long_block(cuda_device):
+    """Three blocks through a carried raw tail equal one long block."""
+    rng = np.random.default_rng(70)
+    legs, _, _ = pdec._device_legs(6, "cen", cuda_device)
+    tail_len = pdec.flat_tail_len(6)
+    raw = t(rng.integers(-32768, 32767, size=(3 * 64 * 3000, 2), endpoint=True,
+                         dtype=np.int16)).to(cuda_device)
+    ext = torch.cat([torch.zeros((tail_len, 2), dtype=torch.int16, device=cuda_device), raw])
+    parts = [flat_decimate_tc(ext[i * 64 * 3000: (i + 1) * 64 * 3000 + tail_len].contiguous(), legs)
+             for i in range(3)]
+    long = flat_decimate_tc(ext, legs)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(n(torch.cat(parts)), n(long))
+
+
+def test_mxu_counterpart_matches_vpu_counterpart_on_card(cuda_device):
+    rng = np.random.default_rng(71)
+    raw = t(rng.integers(-32768, 32767, size=((1 << 16) + kdec.HALO, 2), endpoint=True,
+                         dtype=np.int16)).to(cuda_device)
+    tc = kdec.decimate_cascade_fused_mxu(raw, 6)
+    k1 = kdec.decimate_cascade_fused(raw, 6)
+    torch.cuda.synchronize()
+    assert tc.shape == (2, 1 << 10)
+    np.testing.assert_allclose(n(tc), n(k1), atol=ATOL)
+
+
+def test_k1_tc_rejects_what_it_does_not_take(cuda_device):
+    legs, _, _ = pdec._device_legs(3, "cen", cuda_device)
+    good = torch.zeros((pdec.flat_tail_len(3) + 64, 2), dtype=torch.int16, device=cuda_device)
+    with pytest.raises(TypeError):
+        flat_decimate_tc(good.to(torch.float32), legs)
+    with pytest.raises(ValueError):
+        flat_decimate_tc(good[:-1], legs)  # not tail + a multiple of 2^k
+    with pytest.raises(ValueError):
+        flat_decimate_tc(good, torch.zeros((8, 65), device=cuda_device))  # t_leg > 64
+    with pytest.raises(ValueError):
+        flat_decimate_tc(good.t().contiguous().t(), legs)  # not contiguous
