@@ -80,9 +80,16 @@ def analyze(state: PfbState, x: torch.Tensor, m: int,
     (c mod M, so c = M−1 is −fs/M), decimated by M."""
     h = prototype(m) if h is None else h
     ext, v = _polyphase(state, x, m, h)
-    tw = torch.from_numpy(np.exp(-2j * np.pi * np.arange(m) / m).astype(np.complex64))
-    y = torch.fft.fft(v, dim=-1) * tw.to(x.device)
+    y = torch.fft.fft(v, dim=-1) * _twiddles(m, x.device)
     return PfbState(ext[..., x.shape[-1]:].clone()), y
+
+
+@functools.lru_cache(maxsize=None)
+def _twiddles(m: int, device: torch.device) -> torch.Tensor:
+    """e^{−j2πc/M} per channel c, uploaded once: a pageable upload per block
+    would make the host wait for the work queued before it."""
+    tw = np.exp(-2j * np.pi * np.arange(m) / m).astype(np.complex64)
+    return torch.from_numpy(tw).to(device)
 
 
 def channel_freqs(m: int, fs: float) -> np.ndarray:

@@ -35,6 +35,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..channels.registry import REGISTRY
 from ..dsp import channelizer as chan
@@ -47,6 +48,10 @@ from ..kernels.flat_decimate_tc import flat_decimate_tc
 from ..runtime.engine import _from_numpy, _to_numpy, pin_f32_precision, resolve_device
 
 NFM_URI = "sdrangel.channel.nfmdemod"
+#: the step's layers, each a torch.profiler range, so that a profiled run
+#: splits the step's time by layer (profile_product --gear bank reads them)
+LAYERS = ("gear ÷2^k decimator", "gear spectrum tap", "gear PFB analysis",
+          "gear channel select", "gear demod bank")
 _MULTI_CARD = ("several cards wait for the port of parallel/ over torch.distributed "
                "(ROADMAP.md, queue 1, item 7)")
 
@@ -220,6 +225,8 @@ def build_sharded_step(cfg: ShardedPipelineConfig, device: torch.device | str = 
     h = pfbmod.prototype(cfg.pfb_m, cfg.pfb_taps) if cfg.pfb_m else None
     scfg = (dataclasses.replace(cfg.spectrum, averaging_mode="none")
             if cfg.spectrum is not None else None)
+    decimate, spectrum, analysis, select, demod = (
+        functools.partial(record_function, name) for name in LAYERS)
 
     def step(state, x, carry, offsets, pfb_idx=None):
         if x.device.type != dev.type or x.dtype != torch.int16 or x.shape != (cfg.block, 2):
@@ -234,32 +241,37 @@ def build_sharded_step(cfg: ShardedPipelineConfig, device: torch.device | str = 
                 pfb_idx = (pfb_idx,)
             state, pfb_state = state
 
-        if halo:
-            bb = _cascade_with_halo(x, carry, cfg.log2_decim, cfg.fc_pos)
-            new_carry = x[x.shape[0] - halo:].clone()
-        else:
-            bb, new_carry = iq_raw_to_complex64(x), carry
+        with decimate():
+            if halo:
+                bb = _cascade_with_halo(x, carry, cfg.log2_decim, cfg.fc_pos)
+                new_carry = x[x.shape[0] - halo:].clone()
+            else:
+                bb, new_carry = iq_raw_to_complex64(x), carry
 
         spec = None
         if scfg is not None:  # stateless display frame of the block
-            _, spec = dsp_spectrum.power_spectrum(
-                dsp_spectrum.make_state(scfg, dev), bb, scfg)
+            with spectrum():
+                _, spec = dsp_spectrum.power_spectrum(
+                    dsp_spectrum.make_state(scfg, dev), bb, scfg)
 
         if cfg.pfb_m:
-            pfb_state, ych = pfbmod.analyze(pfb_state, bb, cfg.pfb_m, h)  # (F, M)
+            with analysis():
+                pfb_state, ych = pfbmod.analyze(pfb_state, bb, cfg.pfb_m, h)  # (F, M)
 
         new_states, audios = [], []
         for g, (kind, gcfg) in enumerate(zip(kinds, demod_cfgs)):
             cstate, dstate = state[g]
-            if cfg.pfb_m:
-                idx = torch.as_tensor(pfb_idx[g], device=dev).to(torch.int64)
-                xb = ych.index_select(-1, idx).t()  # (C, F)
-            else:
-                xb = bb.expand(cfg.groups[g].count, bb.shape[-1])
-                if cfg.chan_stages:
-                    signs = np.zeros((cfg.groups[g].count, cfg.chan_stages), int)
-                    cstate, xb = chan.channelize_bank(cstate, xb, signs)
-            dstate, audio = kind.process(dstate, xb, gcfg, offset_hz=offsets[g])
+            with select():
+                if cfg.pfb_m:
+                    idx = torch.as_tensor(pfb_idx[g], device=dev).to(torch.int64)
+                    xb = ych.index_select(-1, idx).t()  # (C, F)
+                else:
+                    xb = bb.expand(cfg.groups[g].count, bb.shape[-1])
+                    if cfg.chan_stages:
+                        signs = np.zeros((cfg.groups[g].count, cfg.chan_stages), int)
+                        cstate, xb = chan.channelize_bank(cstate, xb, signs)
+            with demod():
+                dstate, audio = kind.process(dstate, xb, gcfg, offset_hz=offsets[g])
             new_states.append((cstate, dstate))
             audios.append(audio)
         out_state = tuple(new_states)

@@ -10,13 +10,16 @@ the bench's chainsharded width — 12.288 MS/s i16 in 2^25-sample blocks,
 ÷64 cen on K1-TC, PFB-4, 16 NFM at the bench's offsets, on the bench's
 input (uniform int16 in [−2048, 2048) from a seed). After a warm-up it
 prints:
-  * the per-layer split: each stage of the step run on its own and
-    synchronized (host clock, launch overhead included) — upload (host copy
-    into pinned memory + H2D), the ÷64 decimator, channel selection
-    (channelizer or PFB), the NFM demods, taps, fetch of the outputs;
+  * product gear: the per-layer split, each stage of the step run on its
+    own and synchronized (host clock, launch overhead included) — upload
+    (host copy into pinned memory + H2D), the ÷64 decimator, the
+    channelizer, the NFM demods, taps, fetch of the outputs;
   * the steady loop (upload, step, fetch one block behind): seconds per
     block; then, from torch.profiler over a second run, the device time by
-    kernel and the device's busy share of the steady loop's wall time.
+    kernel and the device's busy share of the steady loop's wall time;
+    bank gear: also the per-layer split of that profiled run, read from the
+    step's own profiler ranges (sharded.LAYERS) and the loop's feed and
+    fetch ranges — device time and host time per layer.
 Needs a CUDA card.
 """
 
@@ -29,10 +32,10 @@ import time
 import numpy as np
 import torch
 from torch.autograd import DeviceType
+from torch.profiler import record_function
 
 from .dsp import channelizer as chan
 from .dsp import decimators as dec
-from .dsp import pfb as pfbmod
 from .dsp import scope as dsp_scope
 from .dsp import spectrum as dsp_spectrum
 from .io import testsource
@@ -104,46 +107,25 @@ def _upload(raw: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(raw).pin_memory().to(device, non_blocking=True)
 
 
-def bank_split(cfg, step, init_fn, blocks, res, idx) -> dict[str, float]:
-    """Mean synchronized wall ms per stage of the bank gear's step."""
-    dev = torch.device("cuda")
-    state, carry = init_fn()
-    demod = cfg.demod_cfg
-    kind = sharded.REGISTRY[NFM]
-    h = pfbmod.prototype(cfg.pfb_m, cfg.pfb_taps)
-    totals: dict[str, float] = {}
-
-    def add(name, ms):
-        totals[name] = totals.get(name, 0.0) + ms / len(blocks)
-
-    for raw_np in blocks:
-        x, ms = _timed(lambda: _upload(raw_np, dev))
-        add("upload (pin + H2D)", ms)
-        bb, ms = _timed(lambda: sharded._cascade_with_halo(x, carry, cfg.log2_decim, "cen"))
-        add("÷64: raw tail + block → K1-TC", ms)
-        (_, ych), ms = _timed(lambda: pfbmod.analyze(state[1], bb, cfg.pfb_m, h))
-        add("PFB-4 analysis", ms)
-        xb, ms = _timed(lambda: ych.index_select(-1, idx).t())
-        add("grid-channel select", ms)
-        _, ms = _timed(lambda: kind.process(state[0][0][1], xb, demod, offset_hz=res))
-        add("NFM bank (16 channels, one batched call)", ms)
-        (state, audio, carry), _ = _timed(lambda: step(state, x, carry, res, idx))
-        _, ms = _timed(lambda: audio.cpu().numpy())
-        add("fetch audio", ms)
-    return totals
+#: the bank loop's host layers as torch.profiler ranges, beside the step's own
+FEED, FETCH = "host feed (pin + H2D)", "fetch audio (D2H)"
 
 
-def run_bank(cfg, step, init_fn, blocks, res, idx):
+def run_bank(step, init_fn, blocks, res, idx):
     """The steady loop: upload, step, fetch one block behind."""
     dev = torch.device("cuda")
     state, carry = init_fn()
     pending = None
     for raw_np in blocks:
-        state, audio, carry = step(state, _upload(raw_np, dev), carry, res, idx)
+        with record_function(FEED):
+            x = _upload(raw_np, dev)
+        state, audio, carry = step(state, x, carry, res, idx)
         if pending is not None:
-            pending.cpu().numpy()
+            with record_function(FETCH):
+                pending.cpu().numpy()
         pending = audio
-    pending.cpu().numpy()
+    with record_function(FETCH):
+        pending.cpu().numpy()
 
 
 def main_bank(n_blocks: int) -> int:
@@ -159,31 +141,58 @@ def main_bank(n_blocks: int) -> int:
     signal_s = cfg.block / cfg.device_rate
     print(f"{name}: bank gear, 12.288 MS/s ÷64 → PFB-4 → 16 NFM, block {cfg.block} "
           f"({signal_s:.4f} s of signal), {n_blocks} blocks", flush=True)
-    run_bank(cfg, step, init_fn, blocks[:2], res, idx)  # warm-up
-
-    for stage, ms in bank_split(cfg, step, init_fn, blocks, res, idx).items():
-        print(f"layer {stage}: {ms:.3f} ms/block (synchronized)", flush=True)
+    run_bank(step, init_fn, blocks[:2], res, idx)  # warm-up
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run_bank(cfg, step, init_fn, blocks, res, idx)
+    run_bank(step, init_fn, blocks, res, idx)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     print(f"steady run: {wall / n_blocks * 1e3:.3f} ms/block, real-time factor "
           f"{n_blocks * signal_s / wall:.2f}", flush=True)
-    _device_time(lambda: run_bank(cfg, step, init_fn, blocks, res, idx), n_blocks, wall)
+    _device_time(lambda: run_bank(step, init_fn, blocks, res, idx), n_blocks, wall,
+                 layers=(FEED, *sharded.LAYERS, FETCH))
     return 0
 
 
-def _device_time(run, n_blocks: int, wall: float) -> None:
+def _device_time(run, n_blocks: int, wall: float, layers: tuple[str, ...] = ()) -> None:
     """Device time by kernel from a profiled run of the loop; the busy share
-    is taken against the unprofiled steady wall time."""
+    is taken against the unprofiled steady wall time. Each name in `layers`
+    is a torch.profiler range of the loop: its device time (the kernels and
+    copies whose launch call on the host lies inside it — a kernel launched
+    through ctypes has no torch op to carry it) and its host time (the
+    range's own span: launches and host copies, not synchronized) per block."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         run()
         torch.cuda.synchronize()
+    if layers:
+        events = prof.events()
+        spans = {name: [e.time_range for e in events
+                        if e.name == name and e.device_type == DeviceType.CPU]
+                 for name in layers}
+        # a device event shares its correlation id with its runtime launch call
+        launched_at = {e.id: e.time_range.start for e in events
+                       if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
+        device_us = dict.fromkeys((*layers, None), 0.0)
+        for e in events:
+            if e.device_type != DeviceType.CUDA or e.name in layers:
+                continue
+            t = launched_at.get(e.id)
+            owner = next((name for name, rs in spans.items()
+                          if t is not None and any(r.start <= t <= r.end for r in rs)), None)
+            device_us[owner] += e.time_range.elapsed_us()
+        for name, rs in spans.items():
+            if not rs:  # a layer this configuration does not run
+                continue
+            host_us = sum(r.elapsed_us() for r in rs)
+            print(f"layer {name}: device {device_us[name] / n_blocks / 1e3:.3f} ms/block, "
+                  f"host {host_us / n_blocks / 1e3:.3f} ms/block ({len(rs)} ranges)", flush=True)
+        print(f"device time launched outside every layer: "
+              f"{device_us[None] / n_blocks / 1e3:.3f} ms/block", flush=True)
+    # the ranges' own device-side spans are not kernels
     kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
+               if getattr(e, "device_type", None) == DeviceType.CUDA and e.key not in layers]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in kernels) / n_blocks / 1e3
     print(f"device busy {busy_ms:.3f} ms/block = {100 * busy_ms / (wall / n_blocks * 1e3):.1f}% "
