@@ -3,8 +3,9 @@ between them, the precision pins, and the CLI with jax made unimportable.
 
 Configuration of tests/test_e2e.py:43-75: 768 kS/s, ÷2, NFM at +100 kHz
 (2 channelizer stages), 3 blocks. Audio agrees to ≥ 80 dB, squelch meters
-are equal, the spectrum is within 1e-2 dB wherever the JAX bin is above
-−120 dB, and the scope within 1e-5.
+are equal, the spectrum is within 1e-2 dB within 60 dB of its peak and
+within 8 ε_f32 of the peak's amplitude at the deeper live bins (above
+−120 dB; see `_compare_spectrum`), and the scope within 1e-5.
 """
 
 import os
@@ -56,14 +57,53 @@ def _compare_outs(j, p):
     assert bool(p["channels"][0]["squelch"]) == bool(j["channels"][0]["squelch"])
     np.testing.assert_allclose(float(p["channels"][0]["power"]),
                                float(j["channels"][0]["power"]), rtol=1e-5)
-    js = np.asarray(j["spectrum"])
-    live = js > -120.0
-    np.testing.assert_allclose(n(p["spectrum"])[live], js[live], atol=1e-2)
+    _compare_spectrum(np.asarray(j["spectrum"]), n(p["spectrum"]))
     np.testing.assert_allclose(n(p["scope"]), np.asarray(j["scope"]), atol=1e-5)
+
+
+EPS_F32 = float(np.finfo(np.float32).eps)
+
+
+def _compare_spectrum(js, ps):
+    """The dB spectrum, bound by f32 rounding relative to the block's peak.
+
+    Bins within 60 dB of the peak agree within 1e-2 dB (measured ~1e-4).
+    Deeper live bins (above −120 dB, down to ~98 dB under the peak) carry
+    f32 rounding of sums whose terms are as large as the peak: the DC/IQ
+    block means (`torch.mean`) are summed in an order that follows torch's
+    intra-op thread split, and an error of a few ε_f32 of the peak
+    amplitude there is ~0.04 dB. So they are held in amplitude relative to
+    the peak: |√P_port − √P_jax| ≤ 8·ε_f32·√P_peak. With 1 thread the worst
+    such bin is off by ~0.3 ε_f32 of the peak amplitude (0.018 dB at 98 dB
+    under it), a margin of ~27×."""
+    live = js > -120.0
+    peak = js.max()
+    near = live & (js >= peak - 60.0)
+    np.testing.assert_allclose(ps[near], js[near], atol=1e-2)
+    deep = live & ~near
+    amp = lambda db: 10.0 ** ((db.astype(np.float64) - peak) / 20.0)  # √P / √P_peak
+    np.testing.assert_allclose(amp(ps[deep]), amp(js[deep]), rtol=0, atol=8 * EPS_F32)
+
+
+@pytest.fixture
+def one_thread():
+    """torch on one intra-op thread (the summation order that once failed)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.mark.parametrize("case", ["cen_i16", "inf", "dc_iq"])
 def test_pipeline_matches_jax(case):
+    _run_pipeline_case(case)
+
+
+def test_pipeline_matches_jax_dc_iq_one_thread(one_thread):
+    _run_pipeline_case("dc_iq")
+
+
+def _run_pipeline_case(case):
     frontend, carrier, src = {}, 100_000.0, {}
     if case == "inf":
         frontend = {"fc_pos": "inf"}
