@@ -7,14 +7,18 @@ Phases (each prints its own line; every number carries the card's name and
 power limit as nvidia-smi reports them):
   0. device and precision: the card, its power limit, the TF32 flags;
   1. build: K1 (kernels/csrc/flat_decimate.cu) and K1-TC
-     (kernels/csrc/flat_decimate_tc.cu) with nvcc for sm_90a;
+     (kernels/csrc/flat_decimate_tc.cu) with nvcc for sm_90a; ptxas's
+     registers and spills, each kernel's shared memory per block, and
+     K1-TC's resident blocks per SM;
   2. K1 against its plain twin on the card: i16 at ÷4/÷16/÷64 on the
      10,240,000-sample product block, f32 real legs, complex legs (inf/sup),
      three streamed blocks against one long block; per-block times;
   2b. K1-TC against its plain version on the card: i16 cen at ÷4/÷16/÷64 on
-     the product block and on the 2^25-sample gear block, three streamed
-     blocks against one long block, the MXU counterpart against K1 on one
-     raw block; per-block times of K1-TC, K1, the plain version and conv1d;
+     the product block and on the 2^25-sample gear block, the block and its
+     tail as two tensors (the gear's call), three streamed blocks of an
+     output count that is no multiple of 128 against one long block, the
+     MXU counterpart against K1 on one raw block; per-block times of K1-TC,
+     K1, the plain version and conv1d;
   3. the product path: RxPipeline on cuda, 10 MS/s i16, ÷64 cen, NFM at
      +20 kHz, 8 blocks of continuous FM, timed twin, K1, K1, twin; K1
      launched once per block, the 1 kHz tone above 25 dB, and ≥ 80 dB
@@ -53,6 +57,8 @@ from sdrangel_tpu_torch.kernels import build
 from sdrangel_tpu_torch.kernels import decimator as kdec
 from sdrangel_tpu_torch.kernels.flat_decimate import flat_decimate, flat_decimate_reference
 from sdrangel_tpu_torch.kernels.flat_decimate_tc import (
+    RATIOS,
+    blocks_per_sm,
     flat_decimate_tc,
     flat_decimate_tc_reference,
 )
@@ -142,6 +148,23 @@ def decimator_bound(n_in: int, n_out: int, r: int, t_leg: int, tensor_cores: boo
     else:
         t_ops = 2 * macs / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def ptxas_summary(report: str) -> list[str]:
+    """Each kernel's registers and spills from nvcc's -Xptxas -v report, as
+    'flat_decimate_tc_kernel<Li6>: 149 registers, 0 bytes spill stores, ...'
+    (the template arguments as mangled)."""
+    out, name, spill = [], None, ""
+    for line in report.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            k = re.search(r"\d(flat_decimate(?:_tc)?_kernel)I(.+?)EE+v", m.group(1))
+            name, spill = (f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)), ""
+        elif name and "spill" in line:
+            spill = line.split("stack frame,")[-1].strip()
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out.append(f"{name}: {m.group(1)} registers, {spill}")
+            name = None
+    return out
 
 
 def conv1d_planes(ext: torch.Tensor, legs: torch.Tensor):
@@ -254,22 +277,25 @@ def phase_k1_tc(dev: torch.device, tag: str) -> dict:
             legs, _, _ = dec._device_legs(log2, "cen", dev)
             tail = torch.from_numpy(rng.integers(-32768, 32767, endpoint=True, dtype=np.int16,
                                                  size=(dec.flat_tail_len(log2), 2))).to(dev)
-            ext = torch.cat([tail, raw])
-            compare(f"i16 cen k={log2} block={block} vs plain", flat_decimate_tc(ext, legs),
-                    flat_decimate_tc_reference(ext, legs))
+            # the gear's call: the block and its carried tail as two tensors
+            compare(f"i16 cen k={log2} block={block} two-pointer vs plain",
+                    flat_decimate_tc(raw, legs, tail=tail),
+                    flat_decimate_tc_reference(raw, legs, tail=tail))
             if log2 != 6:
                 continue
-            t = {"ms": time_ms(lambda: flat_decimate_tc(ext, legs)),
+            ext = torch.cat([tail, raw])  # K1's and conv1d's one-tensor input
+            t = {"ms": time_ms(lambda: flat_decimate_tc(raw, legs, tail=tail)),
                  "k1_ms": time_ms(lambda: flat_decimate(ext, legs)),
-                 "plain_ms": time_ms(lambda: flat_decimate_tc_reference(ext, legs)),
+                 "plain_ms": time_ms(lambda: flat_decimate_tc_reference(raw, legs, tail=tail)),
                  "library_ms": time_ms(conv1d_planes(ext, legs))}
             t["bound_ms"], t["bound_by"] = decimator_bound(
                 ext.shape[0], block >> 6, 64, legs.shape[1], tensor_cores=True)
-            print(f"phase 2b k1-tc time i16 cen k=6 block={block}: K1-TC {t['ms']:.4f} ms, "
-                  f"K1 {t['k1_ms']:.4f} ms, plain (Z-form) {t['plain_ms']:.4f} ms, conv1d alone "
-                  f"{t['library_ms']:.4f} ms per block (CUDA events, 20 launches after 3 "
-                  f"warm-up); K1-TC bound {t['bound_ms']:.4f} ms by {t['bound_by']} [{tag}]",
-                  flush=True)
+            print(f"phase 2b k1-tc time i16 cen k=6 block={block}: K1-TC {t['ms']:.4f} ms "
+                  f"(tail and block as two tensors), K1 {t['k1_ms']:.4f} ms, plain (Z-form) "
+                  f"{t['plain_ms']:.4f} ms, conv1d alone {t['library_ms']:.4f} ms per block "
+                  f"(CUDA events, 20 launches after 3 warm-up); K1-TC bound "
+                  f"{t['bound_ms']:.4f} ms by {t['bound_by']}, K1-TC at "
+                  f"{100 * t['bound_ms'] / t['ms']:.1f} % of it [{tag}]", flush=True)
             timings[block] = t
         if block == GEAR_BLOCK:
             # the MXU counterpart against K1 on one raw block (HALO convention)
@@ -278,22 +304,27 @@ def phase_k1_tc(dev: torch.device, tag: str) -> dict:
             compare(f"decimate_cascade_fused_mxu vs decimate_cascade_fused (K1) k=6 "
                     f"block={block}", kdec.decimate_cascade_fused_mxu(halo_raw, 6),
                     kdec.decimate_cascade_fused(halo_raw, 6))
-            # three streamed blocks (raw int16 tail carried) equal one long block
+            # three streamed blocks, each with the previous one's raw tail as
+            # its own tensor, equal one long block; a block is an output count
+            # that is not a multiple of the 128-output tile
             legs, _, _ = dec._device_legs(6, "cen", dev)
             tail_len = dec.flat_tail_len(6)
-            third = block // 4
-            ext = torch.cat([torch.zeros((tail_len, 2), dtype=torch.int16, device=dev),
-                             raw[:3 * third]])
-            parts = torch.cat([flat_decimate_tc(ext[i * third:(i + 1) * third + tail_len]
-                                                .contiguous(), legs) for i in range(3)])
-            long = flat_decimate_tc(ext, legs)
+            size = ((block // 4) // 64 - 37) * 64
+            tail = torch.zeros((tail_len, 2), dtype=torch.int16, device=dev)
+            long = flat_decimate_tc(raw[:3 * size], legs, tail=tail)
+            long_plain = flat_decimate_tc_reference(raw[:3 * size], legs, tail=tail)
+            parts = []
+            for i in range(3):
+                b = raw[i * size:(i + 1) * size]
+                parts.append(flat_decimate_tc(b, legs, tail=tail))
+                tail = b[size - tail_len:].clone()
+            parts = torch.cat(parts)
             torch.cuda.synchronize()
             err = float((parts - long).abs().max())
             check(err == 0.0, f"K1-TC streamed vs long block differ by {err:.3e}")
-            compare(f"streaming 3x{third} vs one long block (plain)", parts,
-                    flat_decimate_tc_reference(ext, legs))
-            print(f"phase 2b k1-tc streaming 3x{third} vs one long block: max abs {err:.3e} "
-                  f"K1-TC vs K1-TC [{tag}]", flush=True)
+            compare(f"streaming 3x{size} vs one long block (plain)", parts, long_plain)
+            print(f"phase 2b k1-tc streaming 3x{size} ({size // 64} outputs each) vs one long "
+                  f"block: max abs {err:.3e} K1-TC vs K1-TC [{tag}]", flush=True)
     return {"max_abs_err": worst, **timings[GEAR_BLOCK], "product": timings[PRODUCT_BLOCK]}
 
 
@@ -496,18 +527,21 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32} [{tag}]", flush=True)
 
     info = build.build()
-    ptxas = "; ".join(
-        line.strip() for line in info.ptxas.splitlines()
-        if re.search(r"registers|Compiling entry|spill", line))
+    regs = ptxas_summary(info.ptxas)
     print(f"phase 1 build: {os.path.relpath(info.path, REPO)}, nvcc {info.seconds:.2f} s; "
-          f"ptxas: {ptxas or 'n/a'} [{tag}]", flush=True)
+          f"ptxas: {'; '.join(regs) or 'n/a'} [{tag}]", flush=True)
+    tc_regs = [line for line in regs if line.startswith("flat_decimate_tc_kernel")]
+    check(len(tc_regs) == len(RATIOS) and all(" 0 bytes spill stores" in line for line in tc_regs),
+          f"K1-TC spills or is missing from the ptxas report: {tc_regs}")
     lib = build.library()
     print("phase 1 build: dynamic shared memory per block "
           + ", ".join(f"k={k} {lib.sdr_flat_decimate_smem_bytes(1 << k, dec.flat_legs(k).shape[1], c)} B"
                       f"{' (complex legs)' if c else ''}" for k in (2, 4, 6) for c in (0, 1))
-          + "; K1-TC " + ", ".join(f"k={k} {lib.sdr_flat_decimate_tc_smem_bytes(1 << k)} B"
+          + "; K1-TC " + ", ".join(f"k={k} {lib.sdr_flat_decimate_tc_smem_bytes(1 << k)} B, "
+                                   f"{blocks_per_sm(1 << k)} blocks resident per SM"
                                    for k in (2, 4, 6))
           + f" [{tag}]", flush=True)
+    check(blocks_per_sm(64) >= 2, "K1-TC at r=64 holds fewer than 2 blocks per SM")
 
     k1 = phase_k1(dev, tag)
     tc = phase_k1_tc(dev, tag)

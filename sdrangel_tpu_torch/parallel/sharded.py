@@ -13,8 +13,8 @@ halo carried into the block is the previous block's own tail, the
 frame-sharded analysis is the whole analysis, and the all-gather returns
 the local baseband. What is left is one program per block:
 
-  cen:     [raw int16 carry tail | block] → K1-TC (tensor cores), the carry
-           kept as raw int16
+  cen:     the block and the raw int16 carry's tail → K1-TC (tensor cores)
+           as two pointers, with no copy of the block
   inf/sup: ingest → the flat decimator on K1's complex legs, the carried
            tail injected and modulated as the JAX `_cascade_with_halo` does
   pfb_m:   `pfb.analyze` over the baseband, each demod's grid channel
@@ -84,7 +84,7 @@ def _cascade_with_halo(x: torch.Tensor, carry: torch.Tensor, log2: int, fc_pos: 
     tail = carry[carry.shape[0] - tail_len:]
     if fc_pos == "cen":
         legs, _, _ = dec._device_legs(log2, "cen", x.device)
-        return torch.view_as_complex(flat_decimate_tc(torch.cat([tail, x]), legs))
+        return torch.view_as_complex(flat_decimate_tc(x, legs, tail=tail))
     # the flat inf/sup state stores its tail modulated by the rotation
     # pattern; the tail sits at positions [-tail_len, 0) before the block,
     # where the pattern has phase 0

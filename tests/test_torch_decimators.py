@@ -24,7 +24,10 @@ from sdrangel_tpu_torch.dsp import decimators as pdec
 from sdrangel_tpu_torch.dsp import types as ptypes
 from sdrangel_tpu_torch.kernels import decimator as kdec
 from sdrangel_tpu_torch.kernels.flat_decimate import flat_decimate
-from sdrangel_tpu_torch.kernels.flat_decimate_tc import flat_decimate_tc
+from sdrangel_tpu_torch.kernels.flat_decimate_tc import (
+    flat_decimate_tc,
+    flat_decimate_tc_reference,
+)
 from sdrangel_tpu_torch.runtime import corrections as pcorr
 from torch_port_util import CPU, fit_snr, load_golden_iq, n, t
 
@@ -92,12 +95,34 @@ def _tf32(x):
     return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
 
 
+@pytest.mark.parametrize("log2", [1, 2, 3, 4, 5, 6])
+def test_tc_plain_two_pointer_form_equals_one_tensor_form(log2):
+    """flat_decimate_tc(x, legs, tail=t) is the one-tensor form on [t | x],
+    bit for bit, at every ratio."""
+    rng = np.random.default_rng(80 + log2)
+    legs = _legs(log2)
+    tail_len = pdec.flat_tail_len(log2)
+    raw = rng.integers(-32768, 32767, size=(tail_len + (300 << log2), 2), endpoint=True,
+                       dtype=np.int16)
+    one = n(flat_decimate_tc(t(raw), legs))
+    two = n(flat_decimate_tc(t(raw[tail_len:]), legs, tail=t(raw[:tail_len])))
+    assert two.shape == (300, 2)
+    np.testing.assert_array_equal(two, one)
+    np.testing.assert_array_equal(
+        n(flat_decimate_tc_reference(t(raw[tail_len:]), legs, tail=t(raw[:tail_len]))), one)
+    with pytest.raises(ValueError):  # a tail that is not r·(t_leg − 1) pairs
+        flat_decimate_tc(t(raw[tail_len:]), legs, tail=t(raw[1:tail_len]))
+
+
 @pytest.mark.parametrize("log2", [2, 6])
 def test_tc_three_pass_split_keeps_f32_fidelity(log2):
     """K1-TC's arithmetic, emulated: int16 = 256·hi + lo, legs = TF32 hi +
-    TF32 remainder, the passes hi·hi + hi·lo + lo·hi. On full-scale random
-    int16 it stays within 2e-5 of the exact float64 result, as the
-    kernel's source note bounds it (7.5e-6 worst case at ÷64)."""
+    TF32 remainder, the passes hi·hi + hi·lo + lo·hi. The kernel folds the
+    exact power-of-two scales into the B fragments — tf32(l)/128 and
+    remainder/128 — and takes A as hi and lo/256; each product equals the
+    unfolded one exactly. On full-scale random int16 it stays within 2e-5 of
+    the exact float64 result, as the kernel's source note bounds it (7.5e-6
+    worst case at ÷64)."""
     rng = np.random.default_rng(90 + log2)
     legs = pdec.flat_legs(log2)
     r, t_leg = legs.shape
@@ -114,8 +139,43 @@ def test_tc_three_pass_split_keeps_f32_fidelity(log2):
     exact = zsum(planes / 32768.0, legs.astype(np.float64))
     emulated = zsum(hi, l_hi + l_lo) + zsum(lo, l_hi)
     assert np.abs(emulated - exact).max() <= ATOL
+    # the folded B sets and A values, each exact in TF32 and in float32
+    b_hi, b_lo = np.float32(l_hi / 128.0), np.float32(l_lo / 128.0)
+    a_hi, a_lo = planes >> 8, (planes & 0xFF) / 256.0
+    for v in (b_hi, b_lo, np.float32(a_hi), np.float32(a_lo)):
+        np.testing.assert_array_equal(_tf32(v), v)
+    np.testing.assert_array_equal(np.float64(b_hi) * 128.0, l_hi)
+    folded = zsum(a_hi, np.float64(b_hi) + np.float64(b_lo)) + zsum(a_lo, np.float64(b_hi))
+    assert np.abs(folded - exact).max() <= ATOL
+    np.testing.assert_allclose(folded, emulated, rtol=0, atol=1e-12)
     one_pass = zsum(_tf32(planes / 32768.0).astype(np.float64), l_hi)
     assert np.abs(one_pass - exact).max() > ATOL  # plain TF32 would not do
+
+
+def _split_pair_model(w):
+    """The kernel's split_pair on uint32 words (I low, Q high): the byte put
+    into the low mantissa byte of 2^23 (hi, sign bit flipped) or 2^15 (lo),
+    the offset subtracted in float32."""
+    t = w ^ np.uint32(0x80008000)
+    out = []
+    for shift, magic, offset in ((8, 0x4B000000, 8388736.0), (0, 0x47000000, 32768.0),
+                                 (24, 0x4B000000, 8388736.0), (16, 0x47000000, 32768.0)):
+        bits = np.uint32(magic) | ((t >> np.uint32(shift)) & np.uint32(0xFF))
+        out.append(bits.view(np.float32) - np.float32(offset))
+    return out  # hi_i, lo_i/256, hi_q, lo_q/256
+
+
+def test_tc_split_pair_model_is_exact():
+    """Every int16 I and Q: the byte-permute split gives hi and lo/256 with
+    256·hi + 256·(lo/256) = the sample."""
+    v = np.arange(-32768, 32768, dtype=np.int64)
+    i16 = v.astype(np.int16)
+    words = (i16.view(np.uint16).astype(np.uint32)
+             | (i16[::-1].view(np.uint16).astype(np.uint32) << np.uint32(16)))
+    hi_i, lo_i, hi_q, lo_q = _split_pair_model(words)
+    np.testing.assert_array_equal(hi_i, v >> 8)
+    np.testing.assert_array_equal(lo_i * 256.0, v & 0xFF)
+    np.testing.assert_array_equal(256.0 * hi_q + 256.0 * lo_q, v[::-1])
 
 
 def _complex_blocks(rng, n_blocks, size):

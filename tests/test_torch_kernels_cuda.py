@@ -16,6 +16,7 @@ from sdrangel_tpu_torch.io import testsource
 from sdrangel_tpu_torch.kernels import decimator as kdec
 from sdrangel_tpu_torch.kernels.flat_decimate import flat_decimate, flat_decimate_reference
 from sdrangel_tpu_torch.kernels.flat_decimate_tc import (
+    blocks_per_sm,
     flat_decimate_tc,
     flat_decimate_tc_reference,
 )
@@ -128,6 +129,77 @@ def test_k1_tc_streamed_equals_long_block(cuda_device):
     long = flat_decimate_tc(ext, legs)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(n(torch.cat(parts)), n(long))
+
+
+def _raw(rng, pairs, device):
+    return t(rng.integers(-32768, 32767, size=(pairs, 2), endpoint=True,
+                          dtype=np.int16)).to(device)
+
+
+@pytest.mark.parametrize("log2,outputs", [
+    (1, 4096), (2, 1 << 16), (3, 4096), (4, 4096), (5, 4096), (6, 4096),
+    (6, 50),  # below one 128-output tile
+    (6, 1001),  # not a multiple of 128
+    (6, 800 * 128 - 37),  # 800 tiles: not a multiple of the run length on an H100
+    (2, 800 * 128 + 5),
+])
+def test_k1_tc_two_pointer_form_matches_plain_on_card(cuda_device, log2, outputs):
+    rng = np.random.default_rng(160 + log2)
+    tail = _raw(rng, pdec.flat_tail_len(log2), cuda_device)
+    block = _raw(rng, outputs << log2, cuda_device)
+    legs, _, _ = pdec._device_legs(log2, "cen", cuda_device)
+    launches = flat_decimate_tc.launches
+    out = flat_decimate_tc(block, legs, tail=tail)
+    torch.cuda.synchronize()
+    assert flat_decimate_tc.launches == launches + 1
+    assert out.shape == (outputs, 2)
+    np.testing.assert_allclose(n(out), n(flat_decimate_tc_reference(block, legs, tail=tail)),
+                               atol=ATOL)
+    np.testing.assert_array_equal(n(out), n(flat_decimate_tc(torch.cat([tail, block]), legs)))
+
+
+@pytest.mark.parametrize("log2", [1, 2, 6])
+@pytest.mark.parametrize("offset_pairs", [1, 2])  # 4- and 8-byte aligned views
+def test_k1_tc_unaligned_views_on_card(cuda_device, log2, offset_pairs):
+    """A block and a tail whose addresses allow only 8- or 4-byte copies."""
+    rng = np.random.default_rng(170 + log2)
+    outputs = 1001
+    buf = _raw(rng, (outputs << log2) + 8, cuda_device)
+    block = buf[offset_pairs:offset_pairs + (outputs << log2)]
+    tbuf = _raw(rng, pdec.flat_tail_len(log2) + 8, cuda_device)
+    tail = tbuf[offset_pairs:offset_pairs + pdec.flat_tail_len(log2)]
+    assert block.data_ptr() % 16 and tail.data_ptr() % 16
+    legs, _, _ = pdec._device_legs(log2, "cen", cuda_device)
+    want = n(flat_decimate_tc(block.clone(), legs, tail=tail.clone()))  # 16-byte aligned
+    np.testing.assert_array_equal(n(flat_decimate_tc(block, legs, tail=tail)), want)
+    np.testing.assert_allclose(want, n(flat_decimate_tc_reference(block, legs, tail=tail)),
+                               atol=ATOL)
+    ext = buf[offset_pairs:offset_pairs + (outputs << log2)]  # one tensor, unaligned
+    np.testing.assert_allclose(n(flat_decimate_tc(ext, legs)),
+                               n(flat_decimate_tc_reference(ext, legs)), atol=ATOL)
+
+
+def test_k1_tc_two_pointer_streamed_equals_long_block(cuda_device):
+    """Three blocks of 1001 outputs, each with the previous block's raw tail
+    as its own tensor, equal one long block bit for bit."""
+    rng = np.random.default_rng(72)
+    legs, _, _ = pdec._device_legs(6, "cen", cuda_device)
+    tail_len = pdec.flat_tail_len(6)
+    size = 64 * 1001
+    raw = _raw(rng, 3 * size, cuda_device)
+    tail = torch.zeros((tail_len, 2), dtype=torch.int16, device=cuda_device)
+    long = flat_decimate_tc(raw, legs, tail=tail)
+    parts = []
+    for i in range(3):
+        block = raw[i * size:(i + 1) * size].clone()
+        parts.append(flat_decimate_tc(block, legs, tail=tail))
+        tail = block[size - tail_len:].clone()
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(n(torch.cat(parts)), n(long))
+
+
+def test_k1_tc_holds_two_blocks_per_sm_at_r64(cuda_device):
+    assert blocks_per_sm(64) >= 2
 
 
 def test_mxu_counterpart_matches_vpu_counterpart_on_card(cuda_device):
