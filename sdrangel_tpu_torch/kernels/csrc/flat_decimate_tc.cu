@@ -34,9 +34,15 @@
 // function reads 134 MB and writes 4 MB, 0.041 ms at 3.35 TB/s; its work,
 // one TF32 pass of 2·r·t_leg FLOP per output and plane plus the diagonal
 // sum, is 0.018 ms at the 495 TFLOP/s dense peak. The three passes (25.4
-// GFLOP) and the m16/n16 padding are this design's cost: ~0.06 ms of
-// mma.sync at the peak, and the split and the diagonal sum on the CUDA
-// cores about as much again.
+// GFLOP) and the m16/n16 padding are this design's cost: ~0.05 ms of
+// mma.sync at the peak, and ~0.06 ms of issued instructions (split, MMAs,
+// diagonal sums) at 4 a clock per SM. Measured (chip_smoke.py phase 2b, an
+// H100 80GB HBM3 at 700 W): 0.20–0.22 ms, ~19 % of the byte bound, so
+// neither bytes nor issue bound it now; what is left is latency this
+// design does not hide — each warp's 4 accumulator chains take 24
+// dependent MMAs per m16 step, with 12 warps per SM (no profiler counter
+// confirms it). wgmma from shared memory, with the A split once per stage,
+// is the next step.
 //
 // Design.
 // - A block walks a run of consecutive 128-output tiles (the launcher sizes

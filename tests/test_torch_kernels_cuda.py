@@ -94,9 +94,13 @@ def test_pipeline_on_card_matches_cpu(cuda_device, frontend):
     assert agreement_db(want, got) >= 80.0
 
 
+def _raw(rng, pairs, device):
+    return t(rng.integers(-32768, 32767, size=(pairs, 2), endpoint=True,
+                          dtype=np.int16)).to(device)
+
+
 def _raw_ext(rng, log2, outputs, device):
-    shape = ((outputs << log2) + pdec.flat_tail_len(log2), 2)
-    return t(rng.integers(-32768, 32767, size=shape, endpoint=True, dtype=np.int16)).to(device)
+    return _raw(rng, (outputs << log2) + pdec.flat_tail_len(log2), device)
 
 
 @pytest.mark.parametrize("log2,outputs", [
@@ -129,11 +133,6 @@ def test_k1_tc_streamed_equals_long_block(cuda_device):
     long = flat_decimate_tc(ext, legs)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(n(torch.cat(parts)), n(long))
-
-
-def _raw(rng, pairs, device):
-    return t(rng.integers(-32768, 32767, size=(pairs, 2), endpoint=True,
-                          dtype=np.int16)).to(device)
 
 
 @pytest.mark.parametrize("log2,outputs", [
