@@ -132,21 +132,23 @@ def fm_blocks(n_blocks: int, block: int, rate: float, carrier: float | tuple[flo
             for b in range(n_blocks)]
 
 
-def decimator_bound(n_in: int, n_out: int, r: int, t_leg: int, tensor_cores: bool
-                    ) -> tuple[float, str]:
-    """(ms, what bounds it): the least time for one ÷r decimation of n_in i16
-    samples — its bytes (input read once, output written once) over HBM,
-    against its arithmetic over the peak of its type: 2·r·t_leg FLOP per
-    output and plane, on FP32 for K1; for K1-TC one TF32 pass of them plus
-    the (t_leg − 1)-add diagonal sum on FP32. K1-TC's three TF32 passes
-    (the hi/lo splits that keep f32 fidelity) are its design's cost, not
-    work the function needs, so the bound counts one."""
-    t_bytes = (n_in * 4 + n_out * 8) / HBM_BPS
-    macs = n_out * 2 * r * t_leg
+def decimator_bound(n_in: int, n_out: int, r: int, t_leg: int, tensor_cores: bool,
+                    in_bytes: int = 4, complex_legs: bool = False) -> tuple[float, str]:
+    """(ms, what bounds it): the least time for one ÷r decimation of n_in
+    I/Q pairs of in_bytes each — its bytes (input read once, output written
+    once) over HBM, against its arithmetic over the peak of its type: per
+    output, r·t_leg FMA per plane with real legs (2 FLOP each, two planes),
+    4 real FMA per complex sample and tap with complex legs, on FP32 for
+    K1; for K1-TC one TF32 pass of them plus the (t_leg − 1)-add diagonal
+    sum on FP32. K1-TC's three TF32 passes (the hi/lo splits that keep f32
+    fidelity) are its design's cost, not work the function needs, so the
+    bound counts one."""
+    t_bytes = (n_in * in_bytes + n_out * 8) / HBM_BPS
+    flop = n_out * r * t_leg * (8 if complex_legs else 4)
     if tensor_cores:
-        t_ops = 2 * macs / TF32_FLOPS + n_out * 2 * (t_leg - 1) / FP32_FLOPS
+        t_ops = flop / TF32_FLOPS + n_out * 2 * (t_leg - 1) / FP32_FLOPS
     else:
-        t_ops = 2 * macs / FP32_FLOPS
+        t_ops = flop / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
 
@@ -167,24 +169,33 @@ def ptxas_summary(report: str) -> list[str]:
     return out
 
 
-def conv1d_planes(ext: torch.Tensor, legs: torch.Tensor):
+def conv1d_planes(ext: torch.Tensor, legs: torch.Tensor, legs_im: torch.Tensor | None = None):
     """The library call computing the decimator: one F.conv1d over the f32
-    polyphase planes (made outside the timed call)."""
+    polyphase planes (made outside the timed call), with the two weights
+    (real and imaginary legs) that `flat_decimate_reference` stacks for
+    complex legs."""
     r = legs.shape[0]
-    planes = (ext.to(torch.float32) * (1.0 / 32768.0)).reshape(-1, r, 2).permute(2, 1, 0)
-    planes = planes.contiguous()
-    weight = legs[None].contiguous()
+    x = ext.to(torch.float32)
+    if ext.dtype == torch.int16:
+        x = x * (1.0 / 32768.0)
+    planes = x.reshape(-1, r, 2).permute(2, 1, 0).contiguous()
+    weight = (legs[None] if legs_im is None else torch.stack([legs, legs_im])).contiguous()
     return lambda: F.conv1d(planes, weight)
 
 
+# K1's three forms: (name, input dtype, placement of the legs)
+K1_FORMS = (("i16 real", torch.int16, "cen"), ("f32 real", torch.float32, "cen"),
+            ("f32 complex", torch.float32, "inf"))
+
+
 def phase_k1(dev: torch.device, tag: str) -> dict:
+    """K1 in the two-pointer form against its plain twin, each form timed
+    beside its bound and its conv1d."""
     rng = np.random.default_rng(1234)
     worst = 0.0
 
-    def compare(name, ext, legs_re, legs_im=None):
+    def compare(name, got, want):
         nonlocal worst
-        got = flat_decimate(ext, legs_re, legs_im)
-        want = flat_decimate_reference(ext, legs_re, legs_im)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite K1 output")
@@ -196,42 +207,38 @@ def phase_k1(dev: torch.device, tag: str) -> dict:
     raw = torch.from_numpy(
         rng.integers(-32768, 32767, size=(PRODUCT_BLOCK, 2), endpoint=True, dtype=np.int16)
     ).to(dev)
-    timings = {}
+    inputs = {torch.int16: raw, torch.float32: (raw.to(torch.float32) / 32768.0).contiguous()}
+    forms = {}
     for log2 in (2, 4, 6):
-        legs, _, _ = dec._device_legs(log2, "cen", dev)
-        tail = torch.from_numpy(rng.integers(-32768, 32767, size=(dec.flat_tail_len(log2), 2),
-                                             dtype=np.int16)).to(dev)
-        ext = torch.cat([tail, raw])
-        compare(f"i16 cen k={log2} block={PRODUCT_BLOCK}", ext, legs)
-        if log2 == 6:
-            timings["ms"] = time_ms(lambda: flat_decimate(ext, legs))
-            timings["plain_ms"] = time_ms(lambda: flat_decimate_reference(ext, legs))
-            timings["library_ms"] = time_ms(conv1d_planes(ext, legs))
-            timings["bound_ms"], timings["bound_by"] = decimator_bound(
-                ext.shape[0], PRODUCT_BLOCK >> 6, 64, legs.shape[1], tensor_cores=False)
-            print(f"phase 2 k1 time i16 cen k=6 block={PRODUCT_BLOCK}: K1 "
-                  f"{timings['ms']:.4f} ms, twin {timings['plain_ms']:.4f} ms, conv1d alone "
-                  f"{timings['library_ms']:.4f} ms per block (CUDA events, 20 launches after "
-                  f"3 warm-up); bound {timings['bound_ms']:.4f} ms by {timings['bound_by']} "
-                  f"[{tag}]", flush=True)
+        tail_i16 = torch.from_numpy(rng.integers(-32768, 32767, endpoint=True, dtype=np.int16,
+                                                 size=(dec.flat_tail_len(log2), 2))).to(dev)
+        tails = {torch.int16: tail_i16, torch.float32: tail_i16.to(torch.float32) / 32768.0}
+        for name, dtype, fc_pos in K1_FORMS:
+            legs_re, legs_im, _ = dec._device_legs(log2, fc_pos, dev)
+            x, tail = inputs[dtype], tails[dtype]
+            compare(f"{name} legs k={log2} block={PRODUCT_BLOCK} two-pointer vs twin",
+                    flat_decimate(x, legs_re, legs_im, tail=tail),
+                    flat_decimate_reference(x, legs_re, legs_im, tail=tail))
+            if log2 != 6:
+                continue
+            t = {"ms": time_ms(lambda: flat_decimate(x, legs_re, legs_im, tail=tail)),
+                 "plain_ms": time_ms(
+                     lambda: flat_decimate_reference(x, legs_re, legs_im, tail=tail)),
+                 "library_ms": time_ms(conv1d_planes(torch.cat([tail, x]), legs_re, legs_im))}
+            t["bound_ms"], t["bound_by"] = decimator_bound(
+                tail.shape[0] + x.shape[0], PRODUCT_BLOCK >> 6, 64, legs_re.shape[1],
+                tensor_cores=False, in_bytes=x.element_size() * 2,
+                complex_legs=legs_im is not None)
+            print(f"phase 2 k1 time {name} legs k=6 block={PRODUCT_BLOCK}: K1 {t['ms']:.4f} ms "
+                  f"(tail and block as two tensors), twin {t['plain_ms']:.4f} ms, conv1d alone "
+                  f"{t['library_ms']:.4f} ms per block (CUDA events, 20 launches after 3 "
+                  f"warm-up); bound {t['bound_ms']:.4f} ms by {t['bound_by']}, K1 at "
+                  f"{100 * t['bound_ms'] / t['ms']:.1f} % of it [{tag}]", flush=True)
+            forms[name] = t
 
-    x = (raw.to(torch.float32) * (1.0 / 32768.0)).contiguous()
+    # three streamed blocks (tail carried as raw int16, passed as its own
+    # tensor) equal one long block bit for bit
     legs, _, _ = dec._device_legs(6, "cen", dev)
-    ext = torch.cat([torch.zeros((dec.flat_tail_len(6), 2), device=dev), x])
-    compare(f"f32 cen k=6 block={PRODUCT_BLOCK}", ext, legs)
-    t_f32 = time_ms(lambda: flat_decimate(ext, legs))
-    t_f32_plain = time_ms(lambda: flat_decimate_reference(ext, legs))
-    for fc_pos in ("inf", "sup"):
-        legs_re, legs_im, _ = dec._device_legs(6, fc_pos, dev)
-        compare(f"f32 {fc_pos} complex legs k=6 block={PRODUCT_BLOCK}", ext, legs_re, legs_im)
-    legs_re, legs_im, _ = dec._device_legs(6, "inf", dev)
-    t_cplx = time_ms(lambda: flat_decimate(ext, legs_re, legs_im))
-    t_cplx_plain = time_ms(lambda: flat_decimate_reference(ext, legs_re, legs_im))
-    print(f"phase 2 k1 time f32 k=6: real legs K1 {t_f32:.4f} ms twin {t_f32_plain:.4f} ms; "
-          f"complex legs K1 {t_cplx:.4f} ms twin {t_cplx_plain:.4f} ms per block [{tag}]",
-          flush=True)
-
-    # three streamed blocks (tail carried as raw int16) equal one long block
     third = PRODUCT_BLOCK // 4
     blocks = [raw[i * third:(i + 1) * third].contiguous() for i in range(3)]
     state = dec.init_flat_state(6, dev, raw=True)
@@ -240,18 +247,18 @@ def phase_k1(dev: torch.device, tag: str) -> dict:
         state, y = dec.decimate_flat_raw(state, b, 6)
         parts.append(torch.view_as_real(y))
     streamed = torch.cat(parts)
-    long = flat_decimate(torch.cat([dec.init_flat_state(6, dev, raw=True).tail, *blocks]), legs)
-    long_twin = flat_decimate_reference(
-        torch.cat([dec.init_flat_state(6, dev, raw=True).tail, *blocks]), legs)
+    zero_tail = dec.init_flat_state(6, dev, raw=True).tail
+    long = flat_decimate(raw[:3 * third], legs, tail=zero_tail)
+    long_twin = flat_decimate_reference(raw[:3 * third], legs, tail=zero_tail)
     torch.cuda.synchronize()
     err_stream = float((streamed - long).abs().max())
     err_stream_twin = float((streamed - long_twin).abs().max())
-    check(err_stream <= ATOL and err_stream_twin <= ATOL,
-          f"streamed vs long block: {err_stream:.3e} (K1) {err_stream_twin:.3e} (twin)")
+    check(err_stream == 0.0, f"K1 streamed vs long block differ by {err_stream:.3e}")
+    check(err_stream_twin <= ATOL, f"streamed vs long block (twin): {err_stream_twin:.3e}")
     worst = max(worst, err_stream_twin)
-    print(f"phase 2 k1 streaming 3x{third} vs one block: max abs {err_stream:.3e} vs K1, "
+    print(f"phase 2 k1 streaming 3x{third} vs one block: max abs {err_stream:.3e} K1 vs K1, "
           f"{err_stream_twin:.3e} vs twin [{tag}]", flush=True)
-    return {"max_abs_err": worst, **timings}
+    return {"max_abs_err": worst, **forms["i16 real"], "forms": forms}
 
 
 def phase_k1_tc(dev: torch.device, tag: str) -> dict:

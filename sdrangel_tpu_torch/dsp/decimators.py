@@ -155,7 +155,9 @@ def decimate_reference_oracle(
 class FlatState(NamedTuple):
     """tail: the last 2^k·(t_leg−1) input samples — complex64 (n,) on the
     float path (stored modulated for inf/sup), or raw int16 (n, 2) on the
-    fused i16 ingest path (`decimate_flat_raw`)."""
+    fused i16 ingest path (`decimate_flat_raw`). K1 takes it and the next
+    block as two pointers; the new tail is a clone of the block's last n
+    samples (a small concatenation only for a block shorter than n)."""
 
     tail: torch.Tensor
 
@@ -250,6 +252,14 @@ def init_flat_state(
     return FlatState(torch.zeros(n, dtype=torch.complex64, device=device))
 
 
+def _next_tail(state: FlatState, x: torch.Tensor) -> FlatState:
+    """The carried tail after block x: the last n samples of [tail | x]."""
+    n = state.tail.shape[0]
+    if x.shape[0] >= n:
+        return FlatState(x[x.shape[0] - n:].clone())
+    return FlatState(torch.cat([state.tail[x.shape[0]:], x]))
+
+
 def decimate_flat_any(
     state: FlatState, x: torch.Tensor, log2_decim: int, fc_pos: str = "cen",
     order: int = DECIMATORS_ORDER,
@@ -261,9 +271,9 @@ def decimate_flat_any(
     legs_re, legs_im, pattern = _device_legs(log2_decim, fc_pos, x.device, order)
     if pattern is not None:
         x = rotate(x, pattern)  # the tail is stored modulated
-    ext = torch.cat([state.tail, x])
-    y = flat_decimate(torch.view_as_real(ext), legs_re, legs_im)
-    return FlatState(ext[x.shape[0]:].clone()), torch.view_as_complex(y)
+    y = flat_decimate(torch.view_as_real(x), legs_re, legs_im,
+                      tail=torch.view_as_real(state.tail))
+    return _next_tail(state, x), torch.view_as_complex(y)
 
 
 def decimate_flat(
@@ -281,6 +291,5 @@ def decimate_flat_raw(
     int16, so no float copy of the capture is ever made.
     Returns (state', y (T/2^k,) complex64)."""
     legs_re, _, _ = _device_legs(log2_decim, "cen", raw.device, order)
-    ext = torch.cat([state.tail, raw])
-    y = flat_decimate(ext, legs_re)
-    return FlatState(ext[raw.shape[0]:].clone()), torch.view_as_complex(y)
+    y = flat_decimate(raw, legs_re, tail=state.tail)
+    return _next_tail(state, raw), torch.view_as_complex(y)

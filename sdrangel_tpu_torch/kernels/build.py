@@ -94,10 +94,10 @@ def library() -> ctypes.CDLL:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.sdr_flat_decimate.restype = i32
     lib.sdr_flat_decimate.argtypes = [
-        i32, p, i64, p, p, i32, i32, ctypes.c_float, p, i64, p,
+        i32, p, i64, p, i64, p, p, i32, i32, ctypes.c_float, p, i64, p,
     ]
     lib.sdr_flat_decimate_smem_bytes.restype = i64
-    lib.sdr_flat_decimate_smem_bytes.argtypes = [i32, i32, i32]
+    lib.sdr_flat_decimate_smem_bytes.argtypes = [i32, i32, i32, i32]
     lib.sdr_flat_decimate_tc.restype = i32
     lib.sdr_flat_decimate_tc.argtypes = [p, i64, p, i64, p, i32, i32, p, i64, p]
     lib.sdr_flat_decimate_tc_smem_bytes.restype = i64

@@ -5,8 +5,8 @@
 // form): the whole order-64 half-band ÷2^k cascade folded into one composed
 // filter h_eq = h ∗ h↑2 ∗ …, split into r = 2^k polyphase legs (r, t_leg).
 //
-// Contract: ext is [carried tail | block] as interleaved (N, 2) I/Q, with
-// N = T + r·(t_leg − 1); output m (of T/r) is
+// Contract: ext = [carried tail | block], interleaved (N, 2) I/Q, given as
+// two pointers, N = T + r·(t_leg − 1); output m (of T/r) is
 //     y[m] = Σ_t Σ_j legs[j, t] · ext[r·(m + t) + j]
 //          = Σ_i h[i] · ext[r·m + i],   h[i] = legs[i mod r, i div r],
 // a stride-r FIR of L = r·t_leg taps over contiguous input. Real legs act on
@@ -53,9 +53,19 @@ __device__ __forceinline__ float2 load_sample(const float2* p, long long i, floa
   return p[i];
 }
 
+// sample i of ext = [tail | block], zero past its end
+template <typename In>
+__device__ __forceinline__ float2 load_ext(const In* tail, long long n_tail, const In* block,
+                                           long long n_block, long long i, float scale) {
+  if (i < n_tail) return load_sample(tail, i, scale);
+  i -= n_tail;
+  return i < n_block ? load_sample(block, i, scale) : make_float2(0.f, 0.f);
+}
+
 template <typename In, bool kComplex>
 __global__ void __launch_bounds__(kThreads)
-flat_decimate_kernel(const In* __restrict__ ext, long long n_in,
+flat_decimate_kernel(const In* __restrict__ tail, long long n_tail,
+                     const In* __restrict__ block, long long n_block,
                      const float* __restrict__ legs_re,
                      const float* __restrict__ legs_im, int r, int t_leg,
                      int n_taps_pad, long long n_out, float scale,
@@ -70,7 +80,7 @@ flat_decimate_kernel(const In* __restrict__ ext, long long n_in,
   const long long base = m0 * r;
   for (int s = threadIdx.x; s < win; s += kThreads) {
     const long long idx = base + s;
-    sh_x[s] = idx < n_in ? load_sample(ext, idx, scale) : make_float2(0.f, 0.f);
+    sh_x[s] = load_ext(tail, n_tail, block, n_block, idx, scale);
   }
   const int n_taps = r * t_leg;
   for (int i = threadIdx.x; i < n_taps_pad; i += kThreads) {
@@ -126,7 +136,8 @@ flat_decimate_kernel(const In* __restrict__ ext, long long n_in,
 }
 
 template <typename In, bool kComplex>
-cudaError_t launch(const void* ext, long long n_in, const float* legs_re,
+cudaError_t launch(const void* tail, long long n_tail, const void* block, long long n_block,
+                   const float* legs_re,
                    const float* legs_im, int r, int t_leg, long long n_out,
                    float scale, void* out, cudaStream_t stream) {
   const int n_taps_pad = (r * t_leg + 31) / 32 * 32;
@@ -140,7 +151,7 @@ cudaError_t launch(const void* ext, long long n_in, const float* legs_re,
   const long long blocks = (n_out + kTileOut - 1) / kTileOut;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const In*>(ext), n_in, legs_re, legs_im, r, t_leg, n_taps_pad,
+      static_cast<const In*>(tail), n_tail, static_cast<const In*>(block), n_block, legs_re, legs_im, r, t_leg, n_taps_pad,
       n_out, scale, static_cast<float2*>(out));
   return cudaGetLastError();
 }
@@ -154,26 +165,29 @@ const char* sdr_cuda_error_string(int err) {
 }
 
 // Dynamic shared memory one launch needs, in bytes (for error reports).
-long long sdr_flat_decimate_smem_bytes(int r, int t_leg, int complex_legs) {
+long long sdr_flat_decimate_smem_bytes(int in_is_i16, int r, int t_leg, int complex_legs) {
+  (void)in_is_i16;
   const long long n_taps_pad = (static_cast<long long>(r) * t_leg + 31) / 32 * 32;
   const long long win = static_cast<long long>(r) * (kTileOut - 1) + n_taps_pad;
   return win * 8 + n_taps_pad * 4 * (complex_legs ? 2 : 1);
 }
 
-// ext: (n_in, 2) int16 (in_is_i16 != 0) or float32; legs: (r, t_leg) float32,
-// legs_im null for real legs; out: (n_out, 2) float32. Launches on `stream`
-// and returns cudaGetLastError() of the launch (0 on success).
-int sdr_flat_decimate(int in_is_i16, const void* ext, long long n_in,
+// tail: (tail_pairs, 2), block: (block_pairs, 2), int16 (in_is_i16 != 0) or
+// float32; legs: (r, t_leg) float32, legs_im null for real legs; out:
+// (n_out, 2) float32. Launches on `stream` and returns cudaGetLastError()
+// of the launch (0 on success).
+int sdr_flat_decimate(int in_is_i16, const void* tail, long long tail_pairs, const void* block,
+                      long long block_pairs,
                       const float* legs_re, const float* legs_im, int r, int t_leg,
                       float scale, void* out, long long n_out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (in_is_i16) {
-    err = legs_im ? launch<short2, true>(ext, n_in, legs_re, legs_im, r, t_leg, n_out, scale, out, s)
-                  : launch<short2, false>(ext, n_in, legs_re, legs_im, r, t_leg, n_out, scale, out, s);
+    err = legs_im ? launch<short2, true>(tail, tail_pairs, block, block_pairs, legs_re, legs_im, r, t_leg, n_out, scale, out, s)
+                  : launch<short2, false>(tail, tail_pairs, block, block_pairs, legs_re, legs_im, r, t_leg, n_out, scale, out, s);
   } else {
-    err = legs_im ? launch<float2, true>(ext, n_in, legs_re, legs_im, r, t_leg, n_out, scale, out, s)
-                  : launch<float2, false>(ext, n_in, legs_re, legs_im, r, t_leg, n_out, scale, out, s);
+    err = legs_im ? launch<float2, true>(tail, tail_pairs, block, block_pairs, legs_re, legs_im, r, t_leg, n_out, scale, out, s)
+                  : launch<float2, false>(tail, tail_pairs, block, block_pairs, legs_re, legs_im, r, t_leg, n_out, scale, out, s);
   }
   return static_cast<int>(err);
 }

@@ -23,7 +23,7 @@ from sdrangel_tpu.runtime import corrections as jcorr
 from sdrangel_tpu_torch.dsp import decimators as pdec
 from sdrangel_tpu_torch.dsp import types as ptypes
 from sdrangel_tpu_torch.kernels import decimator as kdec
-from sdrangel_tpu_torch.kernels.flat_decimate import flat_decimate
+from sdrangel_tpu_torch.kernels.flat_decimate import flat_decimate, flat_decimate_reference
 from sdrangel_tpu_torch.kernels.flat_decimate_tc import (
     flat_decimate_tc,
     flat_decimate_tc_reference,
@@ -195,6 +195,68 @@ def test_decimate_flat_any_streams_like_jax(log2, fc_pos):
         ps, py = pdec.decimate_flat_any(ps, t(x), log2, fc_pos)
         np.testing.assert_allclose(n(py), np.asarray(jy), atol=ATOL)
     np.testing.assert_allclose(n(ps.tail), np.asarray(js.tail), atol=1e-7)
+
+
+@pytest.mark.parametrize("log2", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("dtype", ["i16", "f32"])
+@pytest.mark.parametrize("fc_pos", ["cen", "inf"])
+def test_k1_plain_two_pointer_form_equals_one_tensor_form(log2, dtype, fc_pos):
+    """flat_decimate(x, legs, tail=t) is the one-tensor form on [t | x], bit
+    for bit, at every ratio, for int16 and float32 input and real and
+    complex legs; a tail that is not r·(t_leg − 1) pairs raises."""
+    rng = np.random.default_rng(180 + log2)
+    legs_re, legs_im, _ = pdec._device_legs(log2, fc_pos, CPU)
+    tail_len = pdec.flat_tail_len(log2)
+    shape = (tail_len + (77 << log2), 2)
+    if dtype == "i16":
+        ext = rng.integers(-32768, 32767, size=shape, endpoint=True, dtype=np.int16)
+    else:
+        ext = rng.uniform(-1.0, 1.0, shape).astype(np.float32)
+    one = n(flat_decimate(t(ext), legs_re, legs_im))
+    two = n(flat_decimate(t(ext[tail_len:]), legs_re, legs_im, tail=t(ext[:tail_len])))
+    assert two.shape == (77, 2)
+    np.testing.assert_array_equal(two, one)
+    np.testing.assert_array_equal(
+        n(flat_decimate_reference(t(ext[tail_len:]), legs_re, legs_im,
+                                  tail=t(ext[:tail_len]))), one)
+    with pytest.raises(ValueError):
+        flat_decimate(t(ext[tail_len:]), legs_re, legs_im, tail=t(ext[1:tail_len]))
+
+
+# block lengths (in units of 4·2^k) that put blocks shorter than the tail
+# (2^k·(t_leg − 1) samples) between longer ones
+_SHORT_BLOCKS = (3, 1, 40, 2, 5)
+
+
+@pytest.mark.parametrize("log2", [3, 6])
+@pytest.mark.parametrize("fc_pos", ["cen", "inf", "sup"])
+def test_decimate_flat_any_streams_short_blocks_like_jax(log2, fc_pos):
+    """Blocks shorter than the carried tail: the new tail is the end of
+    [tail | block], not a clone of the block's end."""
+    rng = np.random.default_rng(190 + log2)
+    js = jdec.init_flat_state(log2)
+    ps = pdec.init_flat_state(log2, CPU)
+    for units in _SHORT_BLOCKS:
+        x = _complex_blocks(rng, 1, units * (4 << log2))[0]
+        js, jy = jdec.decimate_flat_any(js, jnp.asarray(x), log2, fc_pos)
+        ps, py = pdec.decimate_flat_any(ps, t(x), log2, fc_pos)
+        np.testing.assert_allclose(n(py), np.asarray(jy), atol=ATOL)
+    np.testing.assert_allclose(n(ps.tail), np.asarray(js.tail), atol=1e-7)
+
+
+@pytest.mark.parametrize("log2", [3, 6])
+def test_fused_i16_path_streams_short_blocks_like_jax(log2):
+    rng = np.random.default_rng(200 + log2)
+    js = jdec.init_flat_state(log2)
+    ps = pdec.init_flat_state(log2, CPU, raw=True)
+    for units in _SHORT_BLOCKS:
+        raw = _raw(rng, units * (4 << log2))
+        js, jy = jdec.decimate_flat_any(
+            js, jtypes.iq_raw_to_complex64(jnp.asarray(raw), "i16"), log2, "cen")
+        ps, py = pdec.decimate_flat_raw(ps, t(raw), log2)
+        np.testing.assert_allclose(n(py), np.asarray(jy), atol=ATOL)
+    tail = n(ps.tail).astype(np.float32) / 32768.0
+    np.testing.assert_array_equal(tail[:, 0] + 1j * tail[:, 1], np.asarray(js.tail))
 
 
 @pytest.mark.parametrize("log2", [3, 6])

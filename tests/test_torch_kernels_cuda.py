@@ -36,28 +36,76 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("log2,fc_pos,i16,outputs", [
-    (2, "cen", True, 1 << 16), (6, "cen", True, 4096), (6, "cen", False, 4096),
-    (6, "inf", False, 4096), (6, "sup", False, 4096),
-    (5, "cen", True, 1001),  # a ragged last tile
-])
-def test_k1_matches_twin_on_card(cuda_device, log2, fc_pos, i16, outputs):
-    rng = np.random.default_rng(50 + log2)
-    size = outputs << log2
-    shape = (size + pdec.flat_tail_len(log2), 2)
+def _ext(rng, pairs, i16, device):
     if i16:
-        ext = t(rng.integers(-32768, 32767, size=shape, endpoint=True, dtype=np.int16))
+        v = rng.integers(-32768, 32767, size=(pairs, 2), endpoint=True, dtype=np.int16)
     else:
-        ext = t(rng.uniform(-1.0, 1.0, shape).astype(np.float32))
-    ext = ext.to(cuda_device)
+        v = rng.uniform(-1.0, 1.0, (pairs, 2)).astype(np.float32)
+    return t(v).to(device)
+
+
+@pytest.mark.parametrize("log2,outputs", [
+    (1, 1001), (2, 1 << 16), (5, 1001), (6, 4096),
+    (6, 1001),  # a ragged last tile
+])
+@pytest.mark.parametrize("i16", [True, False])
+@pytest.mark.parametrize("fc_pos", ["cen", "inf"])
+def test_k1_matches_twin_on_card(cuda_device, log2, outputs, i16, fc_pos):
+    """The block and its tail as two tensors, and the one-tensor form, against
+    the twin; both forms give the same bits."""
+    rng = np.random.default_rng(50 + log2)
+    tail = _ext(rng, pdec.flat_tail_len(log2), i16, cuda_device)
+    block = _ext(rng, outputs << log2, i16, cuda_device)
     legs_re, legs_im, _ = pdec._device_legs(log2, fc_pos, cuda_device)
     launches = flat_decimate.launches
-    out = flat_decimate(ext, legs_re, legs_im)
+    out = flat_decimate(block, legs_re, legs_im, tail=tail)
     torch.cuda.synchronize()
     assert flat_decimate.launches == launches + 1
     assert out.shape == (outputs, 2)
-    np.testing.assert_allclose(n(out), n(flat_decimate_reference(ext, legs_re, legs_im)),
-                               atol=ATOL)
+    np.testing.assert_allclose(
+        n(out), n(flat_decimate_reference(block, legs_re, legs_im, tail=tail)), atol=ATOL)
+    np.testing.assert_array_equal(
+        n(out), n(flat_decimate(torch.cat([tail, block]), legs_re, legs_im)))
+
+
+@pytest.mark.parametrize("log2", [1, 2, 6])
+@pytest.mark.parametrize("i16,offset_pairs", [
+    (True, 1), (True, 2), (False, 1),  # 4-, 8- and 8-byte aligned views
+])
+def test_k1_unaligned_views_on_card(cuda_device, log2, i16, offset_pairs):
+    """A block and a tail whose addresses allow only 8- or 4-byte copies."""
+    rng = np.random.default_rng(150 + log2)
+    outputs = 1001
+    block = _ext(rng, (outputs << log2) + 8, i16, cuda_device)[
+        offset_pairs:offset_pairs + (outputs << log2)]
+    tail = _ext(rng, pdec.flat_tail_len(log2) + 8, i16, cuda_device)[
+        offset_pairs:offset_pairs + pdec.flat_tail_len(log2)]
+    assert block.data_ptr() % 16 and tail.data_ptr() % 16
+    legs_re, legs_im, _ = pdec._device_legs(log2, "inf", cuda_device)
+    want = n(flat_decimate(block.clone(), legs_re, legs_im, tail=tail.clone()))
+    np.testing.assert_array_equal(n(flat_decimate(block, legs_re, legs_im, tail=tail)), want)
+    np.testing.assert_allclose(
+        want, n(flat_decimate_reference(block, legs_re, legs_im, tail=tail)), atol=ATOL)
+
+
+@pytest.mark.parametrize("i16,fc_pos", [(True, "cen"), (False, "cen"), (False, "inf")])
+def test_k1_streamed_equals_long_block(cuda_device, i16, fc_pos):
+    """Three blocks of 1001 outputs, each with the previous block's tail as
+    its own tensor, equal one long block bit for bit."""
+    rng = np.random.default_rng(73)
+    legs_re, legs_im, _ = pdec._device_legs(6, fc_pos, cuda_device)
+    tail_len = pdec.flat_tail_len(6)
+    size = 64 * 1001
+    x = _ext(rng, 3 * size, i16, cuda_device)
+    tail = _ext(rng, tail_len, i16, cuda_device)
+    long = flat_decimate(x, legs_re, legs_im, tail=tail)
+    parts = []
+    for i in range(3):
+        block = x[i * size:(i + 1) * size].clone()
+        parts.append(flat_decimate(block, legs_re, legs_im, tail=tail))
+        tail = block[size - tail_len:].clone()
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(n(torch.cat(parts)), n(long))
 
 
 def test_k1_rejects_what_it_does_not_take(cuda_device):
@@ -71,6 +119,8 @@ def test_k1_rejects_what_it_does_not_take(cuda_device):
         flat_decimate(good.t().contiguous().t(), legs)  # not contiguous
     with pytest.raises(ValueError):  # a contiguous view that splits an I/Q pair
         flat_decimate(torch.cat([good.view(-1), good.view(-1)[:2]])[1:-1].view(-1, 2), legs)
+    with pytest.raises(ValueError):  # a tail that is not r·(t_leg − 1) pairs
+        flat_decimate(good[8:], legs, tail=good[:8])
 
 
 @pytest.mark.parametrize("frontend", [{}, {"fc_pos": "inf"}])
