@@ -8,11 +8,13 @@ power limit as nvidia-smi reports them):
   0. device and precision: the card, its power limit, the TF32 flags;
   1. build: K1 (kernels/csrc/flat_decimate.cu) and K1-TC
      (kernels/csrc/flat_decimate_tc.cu) with nvcc for sm_90a; ptxas's
-     registers and spills, each kernel's shared memory per block, and
-     K1-TC's resident blocks per SM;
-  2. K1 against its plain twin on the card: i16 at ÷4/÷16/÷64 on the
-     10,240,000-sample product block, f32 real legs, complex legs (inf/sup),
-     three streamed blocks against one long block; per-block times;
+     registers and spills (a spill of any variant of either kernel fails),
+     each kernel's shared memory per block and resident blocks per SM;
+  2. K1 against its plain twin on the card, the block and its tail as two
+     tensors: i16 real legs, f32 real legs and f32 complex legs (inf) at
+     ÷4/÷16/÷64 on the 10,240,000-sample product block; each form's time
+     at ÷64 beside its bound and its conv1d; three streamed blocks equal
+     one long block bit for bit;
   2b. K1-TC against its plain version on the card: i16 cen at ÷4/÷16/÷64 on
      the product block and on the 2^25-sample gear block, the block and its
      tail as two tensors (the gear's call), three streamed blocks of an
@@ -55,6 +57,7 @@ import sdrangel_tpu_torch.dsp.decimators as dec
 from sdrangel_tpu_torch.io import testsource, wav
 from sdrangel_tpu_torch.kernels import build
 from sdrangel_tpu_torch.kernels import decimator as kdec
+from sdrangel_tpu_torch.kernels import flat_decimate as k1
 from sdrangel_tpu_torch.kernels.flat_decimate import flat_decimate, flat_decimate_reference
 from sdrangel_tpu_torch.kernels.flat_decimate_tc import (
     RATIOS,
@@ -155,12 +158,21 @@ def decimator_bound(n_in: int, n_out: int, r: int, t_leg: int, tensor_cores: boo
 def ptxas_summary(report: str) -> list[str]:
     """Each kernel's registers and spills from nvcc's -Xptxas -v report, as
     'flat_decimate_tc_kernel<Li6>: 149 registers, 0 bytes spill stores, ...'
-    (the template arguments as mangled)."""
+    (K1-TC's template arguments as mangled; K1's as
+    'flat_decimate_kernel<short2 r=64 real>')."""
     out, name, spill = [], None, ""
     for line in report.splitlines():
         if m := re.search(r"Compiling entry function '(\S+)'", line):
-            k = re.search(r"\d(flat_decimate(?:_tc)?_kernel)I(.+?)EE+v", m.group(1))
-            name, spill = (f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)), ""
+            mangled = m.group(1)
+            if v := re.search(r"flat_decimate_kernelI.*Variant\w*?I\d+(short2|float2)Li(\d)ELb([01])",
+                              mangled):
+                name = (f"flat_decimate_kernel<{v.group(1)} r={1 << int(v.group(2))} "
+                        f"{'complex' if v.group(3) == '1' else 'real'}>")
+            elif k := re.search(r"\d(flat_decimate(?:_tc)?_kernel)I(.+?)EE+v", mangled):
+                name = f"{k.group(1)}<{k.group(2)}>"
+            else:
+                name = mangled
+            spill = ""
         elif name and "spill" in line:
             spill = line.split("stack frame,")[-1].strip()
         elif name and (m := re.search(r"Used (\d+) registers", line)):
@@ -537,17 +549,24 @@ def main() -> int:
     regs = ptxas_summary(info.ptxas)
     print(f"phase 1 build: {os.path.relpath(info.path, REPO)}, nvcc {info.seconds:.2f} s; "
           f"ptxas: {'; '.join(regs) or 'n/a'} [{tag}]", flush=True)
-    tc_regs = [line for line in regs if line.startswith("flat_decimate_tc_kernel")]
-    check(len(tc_regs) == len(RATIOS) and all(" 0 bytes spill stores" in line for line in tc_regs),
-          f"K1-TC spills or is missing from the ptxas report: {tc_regs}")
     lib = build.library()
-    print("phase 1 build: dynamic shared memory per block "
-          + ", ".join(f"k={k} {lib.sdr_flat_decimate_smem_bytes(1 << k, dec.flat_legs(k).shape[1], c)} B"
-                      f"{' (complex legs)' if c else ''}" for k in (2, 4, 6) for c in (0, 1))
-          + "; K1-TC " + ", ".join(f"k={k} {lib.sdr_flat_decimate_tc_smem_bytes(1 << k)} B, "
-                                   f"{blocks_per_sm(1 << k)} blocks resident per SM"
-                                   for k in (2, 4, 6))
+    for kernel, count in (("flat_decimate_tc_kernel", len(RATIOS)),
+                          ("flat_decimate_kernel", 4 * len(RATIOS))):
+        lines = [line for line in regs if line.startswith(kernel + "<")]
+        check(len(lines) == count and all(" 0 bytes spill stores" in line for line in lines),
+              f"{kernel} spills or is missing from the ptxas report: {lines}")
+    k1_occ = {(k, name): (k1.smem_bytes(1 << k, dec.flat_legs(k).shape[1], dtype == torch.int16,
+                                        fc_pos != "cen"),
+                          k1.blocks_per_sm(1 << k, dec.flat_legs(k).shape[1],
+                                           dtype == torch.int16, fc_pos != "cen"))
+              for k in (2, 4, 6) for name, dtype, fc_pos in K1_FORMS}
+    print("phase 1 build: dynamic shared memory per block and blocks resident per SM: K1 "
+          + ", ".join(f"k={k} {name} {b} B {n} blocks" for (k, name), (b, n) in k1_occ.items())
+          + "; K1-TC " + ", ".join(f"k={k} {lib.sdr_flat_decimate_tc_smem_bytes(1 << k)} B "
+                                   f"{blocks_per_sm(1 << k)} blocks" for k in (2, 4, 6))
           + f" [{tag}]", flush=True)
+    check(all(n >= 2 for (k, _), (_, n) in k1_occ.items() if k == 6),
+          "K1 at r=64 holds fewer than 2 blocks per SM")
     check(blocks_per_sm(64) >= 2, "K1-TC at r=64 holds fewer than 2 blocks per SM")
 
     k1 = phase_k1(dev, tag)
@@ -569,6 +588,8 @@ def main() -> int:
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"],
+        "gear_block_ms": tc["k1_ms"],
+        "forms": k1["forms"],
     }, {
         "name": "flat_decimate_tc",
         "route": "cuda",

@@ -98,6 +98,8 @@ def library() -> ctypes.CDLL:
     ]
     lib.sdr_flat_decimate_smem_bytes.restype = i64
     lib.sdr_flat_decimate_smem_bytes.argtypes = [i32, i32, i32, i32]
+    lib.sdr_flat_decimate_blocks_per_sm.restype = i32
+    lib.sdr_flat_decimate_blocks_per_sm.argtypes = [i32, i32, i32, i32]
     lib.sdr_flat_decimate_tc.restype = i32
     lib.sdr_flat_decimate_tc.argtypes = [p, i64, p, i64, p, i32, i32, p, i64, p]
     lib.sdr_flat_decimate_tc_smem_bytes.restype = i64

@@ -123,10 +123,23 @@ def flat_decimate(
         raise RuntimeError(
             f"flat_decimate launch failed: CUDA error {err} "
             f"({lib.sdr_cuda_error_string(err).decode()}) at r={r}, t_leg={t_leg}, "
-            f"{lib.sdr_flat_decimate_smem_bytes(i16, r, t_leg, int(legs_im is not None))} B "
-            f"of shared memory")
+            f"{smem_bytes(r, t_leg, bool(i16), legs_im is not None)} B of shared memory")
     flat_decimate.launches += 1
     return out
+
+
+def blocks_per_sm(r: int, t_leg: int, i16: bool = True, complex_legs: bool = False) -> int:
+    """K1's blocks resident on one SM of the current card for one variant
+    (the CUDA occupancy query, after the kernel's shared-memory opt-in)."""
+    n = build.library().sdr_flat_decimate_blocks_per_sm(int(i16), r, t_leg, int(complex_legs))
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed at r={r}, t_leg={t_leg}: CUDA error {-n}")
+    return n
+
+
+def smem_bytes(r: int, t_leg: int, i16: bool = True, complex_legs: bool = False) -> int:
+    """Dynamic shared memory of one K1 block of that variant, in bytes."""
+    return build.library().sdr_flat_decimate_smem_bytes(int(i16), r, t_leg, int(complex_legs))
 
 
 flat_decimate.launches = 0  # kernel launches since the last reset

@@ -10,6 +10,8 @@ tests/test_torch_kernels_cuda.py (needs a card).
 """
 
 import functools
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -176,6 +178,210 @@ def test_tc_split_pair_model_is_exact():
     np.testing.assert_array_equal(hi_i, v >> 8)
     np.testing.assert_array_equal(lo_i * 256.0, v & 0xFF)
     np.testing.assert_array_equal(256.0 * hi_q + 256.0 * lo_q, v[::-1])
+
+
+# ---------------------------------------------------------------------------
+# A numpy model of K1's schedule (kernels/csrc/flat_decimate.cu): which
+# thread reads which window slot, leg and tap, where a staged row comes
+# from, the ragged-tile mask and the fixed order of every sum. The kernel
+# runs only on the card; the model runs its schedule here.
+# ---------------------------------------------------------------------------
+
+K1_SOURCE = (pathlib.Path(pdec.__file__).parent.parent / "kernels" / "csrc"
+             / "flat_decimate.cu").read_text()
+K1_WARPS, K1_OUT = 4, 16  # kWarps, kOut of the source
+
+
+def _k1_geometry(r, t_leg):
+    leg_lanes = min(r, 32)
+    groups, leg_iters = 32 // leg_lanes, r // leg_lanes
+    tile = K1_WARPS * groups * K1_OUT
+    t_pad = -(-t_leg // K1_OUT) * K1_OUT
+    rows = tile + t_pad - 1
+    slots = rows + (rows - 1) // K1_OUT
+    return leg_lanes, groups, leg_iters, tile, t_pad, rows, slots
+
+
+def _k1_threads(r):
+    """Per thread of a block: (warp, lane, leg lane jl, first output g0)."""
+    leg_lanes, groups = min(r, 32), 32 // min(r, 32)
+    tid = np.arange(K1_WARPS * 32)
+    warp, lane = tid // 32, tid % 32
+    jl, ol = lane % leg_lanes, lane // leg_lanes
+    return warp, lane, jl, (warp * groups + ol) * K1_OUT
+
+
+def _fma(a, b, c):
+    """float32 fmaf, emulated: the float64 product is exact."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _k1_loads(r, t_leg, in_bytes, complex_legs):
+    """Every shared-memory access of one tile, as (what, byte addresses of
+    the 32 lanes of each warp, bytes per lane): the transposed leg writes,
+    then per leg turn the window prologue, and per tap the new sample and
+    the tap."""
+    leg_lanes, groups, leg_iters, tile, t_pad, rows, slots = _k1_geometry(r, t_leg)
+    tap_bytes = 8 if complex_legs else 4
+    taps_base = slots * r * in_bytes
+    warp, lane, jl, g0 = _k1_threads(r)
+    for j0 in range(0, r, K1_WARPS):  # the legs' staging: warp w writes leg j0 + w
+        for t0 in range(0, t_pad, 32):
+            t = t0 + lane
+            addr = taps_base + (t * (r + 1) + j0 + warp) * tap_bytes
+            yield "leg write", np.where((t < t_pad) & (j0 + warp < r), addr, -1), tap_bytes
+    base = g0 + g0 // K1_OUT
+    for li in range(leg_iters):
+        j = jl + 32 * li
+        for u in range(K1_OUT - 1):
+            yield "prologue", ((base + u) * r + j) * in_bytes, in_bytes
+        for tc in range(0, t_pad, K1_OUT):
+            for tt in range(K1_OUT):
+                u = tt + K1_OUT - 1
+                slot = base + tc + tc // K1_OUT + u + u // K1_OUT
+                yield "sample", (slot * r + j) * in_bytes, in_bytes
+                yield "tap", taps_base + ((tc + tt) * (r + 1) + j) * tap_bytes, tap_bytes
+
+
+def _bank_ways(addr, width):
+    """Most distinct 4-byte words of one bank in one pass of a warp's access:
+    a pass is 32 lanes of 4 bytes or 16 lanes of 8 bytes; −1 marks an idle lane."""
+    lanes_per_pass = 128 // width
+    worst = 1
+    for p in range(0, 32, lanes_per_pass):
+        a = addr[p:p + lanes_per_pass]
+        words = {int(x) // 4 + w for x in a[a >= 0] for w in range(width // 4)}
+        banks = np.bincount([w % 32 for w in words], minlength=32) if words else [1]
+        worst = max(worst, int(np.max(banks)))
+    return worst
+
+
+def _k1_model(tail, block, legs_re, legs_im, scale):
+    """K1's arithmetic in the kernel's order. tail (tail_rows·r, 2) and
+    block (block_rows·r, 2) stay apart; every slot that no row is staged
+    into, and the legs' pitch column, hold NaN."""
+    r, t_leg = legs_re.shape
+    leg_lanes, groups, leg_iters, tile, t_pad, rows, slots = _k1_geometry(r, t_leg)
+    tail_rows, block_rows = tail.shape[0] // r, block.shape[0] // r
+    n_out = block_rows
+    n_tiles = -(-n_out // tile)
+    k_ = K1_OUT
+    # staging: row w of tile b is plane row p = b·tile + w, at slot w + w/kOut
+    x = np.full((n_tiles, slots, r, 2), np.nan, np.float32)
+    p = np.arange(n_tiles)[:, None] * tile + np.arange(rows)
+    tail_r = tail.astype(np.float32).reshape(tail_rows, r, 2)
+    block_r = block.astype(np.float32).reshape(block_rows, r, 2)
+    from_tail = p < tail_rows
+    from_block = ~from_tail & (p - tail_rows < block_rows)
+    staged = np.where(from_tail[..., None, None], tail_r[np.clip(p, 0, tail_rows - 1)],
+                      np.where(from_block[..., None, None],
+                               block_r[np.clip(p - tail_rows, 0, block_rows - 1)], 0.0))
+    w = np.arange(rows)
+    x[:, w + w // k_] = staged
+    h = np.full((t_pad, r + 1, 2), np.nan, np.float32)
+    h[:, :r] = 0.0
+    h[:t_leg, :r, 0] = (legs_re.T * np.float32(scale)).astype(np.float32)
+    h[:t_leg, :r, 1] = 0.0 if legs_im is None else (legs_im.T * np.float32(scale))
+    # the threads: acc[b, tid, 2k + c]
+    _, lane, jl, g0 = _k1_threads(r)
+    acc = np.zeros((n_tiles, K1_WARPS * 32, 2 * k_), np.float32)
+    base = g0 + g0 // k_
+    for li in range(leg_iters):
+        j = jl + 32 * li
+        win = np.zeros((n_tiles, K1_WARPS * 32, k_, 2), np.float32)
+        for u in range(k_ - 1):
+            win[:, :, u] = x[:, base + u, j]
+        for tc in range(0, t_pad, k_):
+            for tt in range(k_):
+                u = tt + k_ - 1
+                win[:, :, u % k_] = x[:, base + tc + tc // k_ + u + u // k_, j]
+                hr, hi = h[tc + tt, j, 0], h[tc + tt, j, 1]
+                v = win[:, :, [(tt + k) % k_ for k in range(k_)]]
+                y0, y1 = acc[..., 0::2], acc[..., 1::2]
+                if legs_im is None:
+                    acc[..., 0::2] = _fma(hr[:, None], v[..., 0], y0)
+                    acc[..., 1::2] = _fma(hr[:, None], v[..., 1], y1)
+                else:
+                    acc[..., 0::2] = _fma(-hi[:, None], v[..., 1], _fma(hr[:, None], v[..., 0], y0))
+                    acc[..., 1::2] = _fma(hi[:, None], v[..., 0], _fma(hr[:, None], v[..., 1], y1))
+    # the sum over the leg lanes by recursive halving
+    a = acc.reshape(n_tiles, K1_WARPS * groups, leg_lanes, 2 * k_)
+    lanes = np.arange(leg_lanes)
+    o, n = leg_lanes // 2, 2 * k_
+    while o:
+        half = n // 2
+        upper = (lanes & o) != 0
+        idx = np.where(upper[:, None], half + np.arange(half), np.arange(half))
+        keep = np.take_along_axis(a, idx[None, None], axis=-1)
+        recv = np.take_along_axis(a[:, :, lanes ^ o], idx[None, None], axis=-1)
+        a = (keep + recv).astype(np.float32)
+        o, n = o // 2, half
+    # lane jl holds values v = kVals·jl + i of its group; v = 2·(output − g0) + plane
+    vals = a.reshape(n_tiles, K1_WARPS * groups, 2 * k_)
+    out = np.full(n_tiles * tile * 2, np.nan, np.float32)
+    m = (np.arange(n_tiles)[:, None, None] * tile + np.arange(K1_WARPS * groups)[None, :, None]
+         * k_ + np.arange(2 * k_)[None, None] // 2)
+    keep_mask = m < n_out
+    out[(2 * (m - np.arange(2 * k_) // 2) + np.arange(2 * k_))[keep_mask]] = vals[keep_mask]
+    assert np.isnan(out[2 * n_out:]).all()  # the ragged tile's outputs are not stored
+    return out[:2 * n_out].reshape(n_out, 2)
+
+
+def test_k1_model_geometry_is_the_source():
+    assert re.search(rf"constexpr int kWarps = {K1_WARPS};", K1_SOURCE)
+    assert re.search(rf"constexpr int kOut = {K1_OUT};", K1_SOURCE)
+    assert "r < 32 ? r : 32" in K1_SOURCE  # the leg lanes
+
+
+@pytest.mark.parametrize("log2", [1, 2, 5, 6])
+@pytest.mark.parametrize("form", ["i16 real", "f32 real", "f32 complex"])
+def test_k1_schedule_model_matches_twin(log2, form):
+    """The model of K1's schedule equals the twin within 2e-5 on a ragged
+    n_out, with the tail's rows read through the tail pointer; three
+    streamed blocks (output counts that are no multiple of the tile, so an
+    output lands at another place in its tile) equal one long block bit for
+    bit."""
+    rng = np.random.default_rng(210 + log2)
+    r = 1 << log2
+    legs_re, legs_im, _ = pdec._device_legs(log2, "cen" if "real" in form else "inf", CPU)
+    legs_re = n(legs_re)
+    legs_im = None if legs_im is None else n(legs_im)
+    tile = _k1_geometry(r, legs_re.shape[1])[3]
+    sizes = (tile + 37, 2 * tile - 5, 11)
+    tail_len = pdec.flat_tail_len(log2)
+    if form.startswith("i16"):
+        x = rng.integers(-32768, 32767, size=(tail_len + r * sum(sizes), 2), endpoint=True,
+                         dtype=np.int16)
+        scale = np.float32(1.0 / 32768.0)
+    else:
+        x = rng.uniform(-1.0, 1.0, (tail_len + r * sum(sizes), 2)).astype(np.float32)
+        scale = np.float32(1.0)
+    long = _k1_model(x[:tail_len], x[tail_len:], legs_re, legs_im, scale)
+    twin = n(flat_decimate_reference(t(x[tail_len:]), t(legs_re),
+                                     None if legs_im is None else t(legs_im), tail=t(x[:tail_len])))
+    assert long.shape == twin.shape == (sum(sizes), 2)
+    np.testing.assert_allclose(long, twin, atol=ATOL)
+    parts, start = [], tail_len
+    for size in sizes:
+        block = x[start:start + r * size]
+        parts.append(_k1_model(x[start - tail_len:start], block, legs_re, legs_im, scale))
+        start += r * size
+    np.testing.assert_array_equal(np.concatenate(parts), long)
+
+
+@pytest.mark.parametrize("log2", [1, 2, 3, 4, 5, 6])
+def test_k1_schedule_is_free_of_bank_conflicts(log2):
+    """No two lanes of a warp read or write different words of one
+    shared-memory bank in one pass, for int16 and float32 windows and real
+    and complex legs, at every ratio."""
+    r = 1 << log2
+    t_leg = pdec.flat_legs(log2).shape[1]
+    for in_bytes in (4, 8):
+        for complex_legs in (False, True):
+            for what, addr, width in _k1_loads(r, t_leg, in_bytes, complex_legs):
+                for w in range(K1_WARPS):
+                    ways = _bank_ways(addr[32 * w:32 * (w + 1)], width)
+                    assert ways == 1, (what, in_bytes, complex_legs, w, ways)
 
 
 def _complex_blocks(rng, n_blocks, size):

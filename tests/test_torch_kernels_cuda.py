@@ -14,6 +14,7 @@ import torch
 from sdrangel_tpu_torch.dsp import decimators as pdec
 from sdrangel_tpu_torch.io import testsource
 from sdrangel_tpu_torch.kernels import decimator as kdec
+from sdrangel_tpu_torch.kernels import flat_decimate as k1
 from sdrangel_tpu_torch.kernels.flat_decimate import flat_decimate, flat_decimate_reference
 from sdrangel_tpu_torch.kernels.flat_decimate_tc import (
     blocks_per_sm,
@@ -106,6 +107,11 @@ def test_k1_streamed_equals_long_block(cuda_device, i16, fc_pos):
         tail = block[size - tail_len:].clone()
     torch.cuda.synchronize()
     np.testing.assert_array_equal(n(torch.cat(parts)), n(long))
+
+
+@pytest.mark.parametrize("i16,complex_legs", [(True, False), (False, False), (False, True)])
+def test_k1_holds_two_blocks_per_sm_at_r64(cuda_device, i16, complex_legs):
+    assert k1.blocks_per_sm(64, pdec.flat_legs(6).shape[1], i16, complex_legs) >= 2
 
 
 def test_k1_rejects_what_it_does_not_take(cuda_device):
