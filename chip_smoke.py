@@ -57,7 +57,7 @@ import sdrangel_tpu_torch.dsp.decimators as dec
 from sdrangel_tpu_torch.io import testsource, wav
 from sdrangel_tpu_torch.kernels import build
 from sdrangel_tpu_torch.kernels import decimator as kdec
-from sdrangel_tpu_torch.kernels import flat_decimate as k1
+from sdrangel_tpu_torch.kernels import flat_decimate as k1_kernel
 from sdrangel_tpu_torch.kernels.flat_decimate import flat_decimate, flat_decimate_reference
 from sdrangel_tpu_torch.kernels.flat_decimate_tc import (
     RATIOS,
@@ -555,11 +555,11 @@ def main() -> int:
         lines = [line for line in regs if line.startswith(kernel + "<")]
         check(len(lines) == count and all(" 0 bytes spill stores" in line for line in lines),
               f"{kernel} spills or is missing from the ptxas report: {lines}")
-    k1_occ = {(k, name): (k1.smem_bytes(1 << k, dec.flat_legs(k).shape[1], dtype == torch.int16,
-                                        fc_pos != "cen"),
-                          k1.blocks_per_sm(1 << k, dec.flat_legs(k).shape[1],
-                                           dtype == torch.int16, fc_pos != "cen"))
-              for k in (2, 4, 6) for name, dtype, fc_pos in K1_FORMS}
+    k1_occ = {}
+    for k in (2, 4, 6):
+        for name, dtype, fc_pos in K1_FORMS:
+            variant = (1 << k, dec.flat_legs(k).shape[1], dtype == torch.int16, fc_pos != "cen")
+            k1_occ[k, name] = (k1_kernel.smem_bytes(*variant), k1_kernel.blocks_per_sm(*variant))
     print("phase 1 build: dynamic shared memory per block and blocks resident per SM: K1 "
           + ", ".join(f"k={k} {name} {b} B {n} blocks" for (k, name), (b, n) in k1_occ.items())
           + "; K1-TC " + ", ".join(f"k={k} {lib.sdr_flat_decimate_tc_smem_bytes(1 << k)} B "
