@@ -11,10 +11,11 @@ power limit as nvidia-smi reports them):
      registers and spills (a spill of any variant of either kernel fails),
      each kernel's shared memory per block and resident blocks per SM;
   2. K1 against its plain twin on the card, the block and its tail as two
-     tensors: i16 real legs, f32 real legs and f32 complex legs (inf) at
-     ÷4/÷16/÷64 on the 10,240,000-sample product block; each form's time
-     at ÷64 beside its bound and its conv1d; three streamed blocks equal
-     one long block bit for bit;
+     tensors: i16 real legs, f32 real legs and f32 complex legs (inf and
+     sup) at ÷4/÷16/÷64 on the 10,240,000-sample product block; each
+     form's time at ÷64 beside its bound and its conv1d; three streamed
+     blocks of 39,977 outputs (no multiple of the tile) equal one long
+     block bit for bit;
   2b. K1-TC against its plain version on the card: i16 cen at ÷4/÷16/÷64 on
      the product block and on the 2^25-sample gear block, the block and its
      tail as two tensors (the gear's call), three streamed blocks of an
@@ -247,11 +248,20 @@ def phase_k1(dev: torch.device, tag: str) -> dict:
                   f"warm-up); bound {t['bound_ms']:.4f} ms by {t['bound_by']}, K1 at "
                   f"{100 * t['bound_ms'] / t['ms']:.1f} % of it [{tag}]", flush=True)
             forms[name] = t
+        # the sup placement's complex legs (the CLI's --fc-pos sup, the
+        # gear's sup route), checked and not timed: the inf form's variant
+        legs_re, legs_im, _ = dec._device_legs(log2, "sup", dev)
+        x, tail = inputs[torch.float32], tails[torch.float32]
+        compare(f"f32 complex (sup) legs k={log2} block={PRODUCT_BLOCK} two-pointer vs twin",
+                flat_decimate(x, legs_re, legs_im, tail=tail),
+                flat_decimate_reference(x, legs_re, legs_im, tail=tail))
 
     # three streamed blocks (tail carried as raw int16, passed as its own
-    # tensor) equal one long block bit for bit
+    # tensor) equal one long block bit for bit; a block is an output count
+    # that is not a multiple of K1's 64-output tile, so outputs change their
+    # place in a tile between the streamed and the long run
     legs, _, _ = dec._device_legs(6, "cen", dev)
-    third = PRODUCT_BLOCK // 4
+    third = PRODUCT_BLOCK // 4 - 64 * 23
     blocks = [raw[i * third:(i + 1) * third].contiguous() for i in range(3)]
     state = dec.init_flat_state(6, dev, raw=True)
     parts = []
@@ -268,7 +278,8 @@ def phase_k1(dev: torch.device, tag: str) -> dict:
     check(err_stream == 0.0, f"K1 streamed vs long block differ by {err_stream:.3e}")
     check(err_stream_twin <= ATOL, f"streamed vs long block (twin): {err_stream_twin:.3e}")
     worst = max(worst, err_stream_twin)
-    print(f"phase 2 k1 streaming 3x{third} vs one block: max abs {err_stream:.3e} K1 vs K1, "
+    print(f"phase 2 k1 streaming 3x{third} ({third // 64} outputs each) vs one block: max abs "
+          f"{err_stream:.3e} K1 vs K1, "
           f"{err_stream_twin:.3e} vs twin [{tag}]", flush=True)
     return {"max_abs_err": worst, **forms["i16 real"], "forms": forms}
 

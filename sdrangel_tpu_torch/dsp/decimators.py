@@ -156,8 +156,11 @@ class FlatState(NamedTuple):
     """tail: the last 2^k·(t_leg−1) input samples — complex64 (n,) on the
     float path (stored modulated for inf/sup), or raw int16 (n, 2) on the
     fused i16 ingest path (`decimate_flat_raw`). K1 takes it and the next
-    block as two pointers; the new tail is a clone of the block's last n
-    samples (a small concatenation only for a block shorter than n)."""
+    block as two pointers, so the block is never copied to put the tail in
+    front (a block of any strides is made contiguous first, a no-op for the
+    contiguous blocks the pipelines pass); the new tail is a clone of the
+    block's last n samples (a small concatenation only for a block shorter
+    than n)."""
 
     tail: torch.Tensor
 
@@ -265,10 +268,12 @@ def decimate_flat_any(
     order: int = DECIMATORS_ORDER,
 ) -> tuple[FlatState, torch.Tensor]:
     """Flat ÷2^k for any placement on K1. x (T,) complex64; T a multiple of
-    2^k (cen) or 4·2^k (inf/sup). Returns (state', y (T/2^k,) complex64)."""
+    2^k (cen) or 4·2^k (inf/sup), any strides. Returns (state', y (T/2^k,)
+    complex64)."""
     if log2_decim == 0:
         return state, x
     legs_re, legs_im, pattern = _device_legs(log2_decim, fc_pos, x.device, order)
+    x = x.contiguous()  # K1 reads the block in place
     if pattern is not None:
         x = rotate(x, pattern)  # the tail is stored modulated
     y = flat_decimate(torch.view_as_real(x), legs_re, legs_im,
@@ -288,8 +293,9 @@ def decimate_flat_raw(
 ) -> tuple[FlatState, torch.Tensor]:
     """Fused i16 ingest + flat cen ÷2^k: raw (T, 2) int16 goes straight to
     K1, which scales by 1/32768 as it reads; the tail is carried as raw
-    int16, so no float copy of the capture is ever made.
-    Returns (state', y (T/2^k,) complex64)."""
+    int16, so no float copy of the capture is ever made. raw may have any
+    strides. Returns (state', y (T/2^k,) complex64)."""
     legs_re, _, _ = _device_legs(log2_decim, "cen", raw.device, order)
+    raw = raw.contiguous()  # K1 reads the block in place
     y = flat_decimate(raw, legs_re, tail=state.tail)
     return _next_tail(state, raw), torch.view_as_complex(y)

@@ -57,6 +57,15 @@ def _operands(x: torch.Tensor, legs_re: torch.Tensor, legs_im: torch.Tensor | No
             raise ValueError(f"x on {x.device}, {name} on {v.device}")
         if not v.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return split_ext(x, tail, r, t_leg)
+
+
+def split_ext(x: torch.Tensor, tail: torch.Tensor | None, r: int, t_leg: int
+              ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The [tail | block] contract that K1 and K1-TC share: returns (tail,
+    block, number of outputs T/r). With tail=None, x is ext = [tail | block]
+    and both are views of it; else the tail must be r·(t_leg − 1) pairs. The
+    block must be a positive multiple of r pairs."""
     n_tail = r * (t_leg - 1)
     if tail is None:
         tail, block = x[:n_tail], x[n_tail:]

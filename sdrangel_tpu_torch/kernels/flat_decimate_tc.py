@@ -25,10 +25,10 @@ from __future__ import annotations
 import torch
 
 from . import build
+from .flat_decimate import RATIOS, split_ext
 
 SCALE_I16 = 1.0 / 32768.0
 MAX_TAPS = 64  # the kernel zero-pads t_leg to 64 taps (4 warps × 16)
-RATIOS = (2, 4, 8, 16, 32, 64)
 
 
 def _operands(x: torch.Tensor, legs: torch.Tensor, tail: torch.Tensor | None
@@ -41,7 +41,6 @@ def _operands(x: torch.Tensor, legs: torch.Tensor, tail: torch.Tensor | None
     if r not in RATIOS or not 1 <= t_leg <= MAX_TAPS:
         raise ValueError(f"legs (r={r}, t_leg={t_leg}): r must be one of {RATIOS} "
                          f"and t_leg at most {MAX_TAPS}")
-    n_tail = r * (t_leg - 1)
     for name, v in (("x", x), ("tail", tail)):
         if v is None:
             continue
@@ -53,18 +52,7 @@ def _operands(x: torch.Tensor, legs: torch.Tensor, tail: torch.Tensor | None
             raise ValueError(f"legs on {legs.device}, {name} on {v.device}")
         if not v.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if tail is None:
-        tail, block = x[:n_tail], x[n_tail:]
-    elif tail.shape[0] != n_tail:
-        raise ValueError(f"tail holds {tail.shape[0]} pairs, not r·(t_leg−1) = {n_tail}")
-    else:
-        block = x
-    t = block.shape[0]
-    if t <= 0 or t % r:
-        raise ValueError(
-            f"{t} block samples after the r·(t_leg−1) = {n_tail}-pair tail: not a positive "
-            f"multiple of r (r={r}, t_leg={t_leg})")
-    return tail, block, t // r
+    return split_ext(x, tail, r, t_leg)
 
 
 def flat_decimate_tc_reference(x: torch.Tensor, legs: torch.Tensor,

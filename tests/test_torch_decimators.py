@@ -405,7 +405,7 @@ def test_decimate_flat_any_streams_like_jax(log2, fc_pos):
 
 @pytest.mark.parametrize("log2", [1, 2, 3, 4, 5, 6])
 @pytest.mark.parametrize("dtype", ["i16", "f32"])
-@pytest.mark.parametrize("fc_pos", ["cen", "inf"])
+@pytest.mark.parametrize("fc_pos", ["cen", "inf", "sup"])
 def test_k1_plain_two_pointer_form_equals_one_tensor_form(log2, dtype, fc_pos):
     """flat_decimate(x, legs, tail=t) is the one-tensor form on [t | x], bit
     for bit, at every ratio, for int16 and float32 input and real and
@@ -480,6 +480,29 @@ def test_fused_i16_path_streams_like_jax(log2):
         np.testing.assert_allclose(n(py), np.asarray(jy), atol=ATOL)
     tail = n(ps.tail).astype(np.float32) / 32768.0
     np.testing.assert_array_equal(tail[:, 0] + 1j * tail[:, 1], np.asarray(js.tail))
+
+
+@pytest.mark.parametrize("fc_pos", ["raw", "cen", "inf"])
+def test_flat_decimators_take_strided_blocks(fc_pos):
+    """A block that is a strided view streams like its contiguous copy: the
+    flat decimators hand K1 a contiguous block."""
+    rng = np.random.default_rng(210)
+    log2 = 3
+    raw = fc_pos == "raw"
+    ps = pdec.init_flat_state(log2, CPU, raw=raw)
+    pc = pdec.init_flat_state(log2, CPU, raw=raw)
+    for _ in range(2):
+        if raw:
+            x = t(_raw(rng, 2 * (4 << 8)))[::2]
+            step = lambda state, v: pdec.decimate_flat_raw(state, v, log2)
+        else:
+            x = t(_complex_blocks(rng, 1, 2 * (4 << 8))[0])[::2]
+            step = lambda state, v: pdec.decimate_flat_any(state, v, log2, fc_pos)
+        assert not x.is_contiguous()
+        ps, y_strided = step(ps, x)
+        pc, y_copy = step(pc, x.contiguous())
+        np.testing.assert_array_equal(n(y_strided), n(y_copy))
+    np.testing.assert_array_equal(n(ps.tail), n(pc.tail))
 
 
 def test_complex_leg_twin_matches_rotated_cascade_oracle():

@@ -45,13 +45,19 @@ def _ext(rng, pairs, i16, device):
     return t(v).to(device)
 
 
-@pytest.mark.parametrize("log2,outputs", [
-    (1, 1001), (2, 1 << 16), (5, 1001), (6, 4096),
-    (6, 1001),  # a ragged last tile
-])
-@pytest.mark.parametrize("i16", [True, False])
-@pytest.mark.parametrize("fc_pos", ["cen", "inf"])
-def test_k1_matches_twin_on_card(cuda_device, log2, outputs, i16, fc_pos):
+_K1_CASES = [
+    (2, "cen", True, 1 << 16), (6, "cen", True, 4096), (6, "cen", False, 4096),
+    (6, "inf", False, 4096), (6, "sup", False, 4096),
+    (5, "cen", True, 1001),  # a ragged last tile
+]
+# every placement and input type at r = 2, 4, 32, 64, each with a ragged last tile
+_K1_CASES += [(log2, fc_pos, i16, 1001) for log2 in (1, 2, 5, 6)
+              for fc_pos in ("cen", "inf", "sup") for i16 in (True, False)
+              if (log2, fc_pos, i16, 1001) not in _K1_CASES]
+
+
+@pytest.mark.parametrize("log2,fc_pos,i16,outputs", _K1_CASES)
+def test_k1_matches_twin_on_card(cuda_device, log2, fc_pos, i16, outputs):
     """The block and its tail as two tensors, and the one-tensor form, against
     the twin; both forms give the same bits."""
     rng = np.random.default_rng(50 + log2)
