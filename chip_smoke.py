@@ -32,7 +32,14 @@ power limit as nvidia-smi reports them):
      (squelch −100 dB, gate 1 ms) at the bench's offsets; 3 continuous
      blocks of FM carriers at two demods' offsets, timed K1-TC, plain,
      plain, K1-TC; K1-TC launched once per block, the tone above 25 dB,
-     all 16 streams finite, ≥ 80 dB agreement with the plain-decimator runs.
+     all 16 streams finite, ≥ 80 dB agreement with the plain-decimator runs;
+  6. the other receivers: RxPipeline on cuda with one AM (10 MS/s i16 ÷64,
+     +20 kHz, a 1 kHz tone at 80 % depth), one SSB (÷64, USB 1 kHz above a
+     −20 kHz carrier) and one WFM channel (÷32, 250 kHz request, a 1 kHz
+     tone at 75 kHz deviation), 6 blocks each at their device blocks
+     (10,240,000, 20,480,000, 10,240,000), timed twin, K1, K1, twin; per
+     kind K1 launched once per block, the tone above 25 dB, ≥ 80 dB against
+     the twin path and against the CPU pipeline on the first 2 blocks.
 Then a JSON line of the kernels, and last the ok line. Any failed check
 raises: the script then exits non-zero and prints no ok line. It needs a
 card; without one it exits non-zero at once.
@@ -67,7 +74,12 @@ from sdrangel_tpu_torch.kernels.flat_decimate_tc import (
     flat_decimate_tc_reference,
 )
 from sdrangel_tpu_torch.parallel import sharded
-from sdrangel_tpu_torch.profile_product import chainsharded_config, chainsharded_offsets
+from sdrangel_tpu_torch.profile_product import (
+    RECEIVERS,
+    chainsharded_config,
+    chainsharded_offsets,
+    receiver_pipeline,
+)
 from sdrangel_tpu_torch.runtime.engine import ChannelSpec, DeviceConfig, RxPipeline
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -538,6 +550,70 @@ def phase_bank(dev: torch.device, tag: str) -> int:
     return launches
 
 
+#: phase 6: each receiver's device block (the engine's block solver at
+#: 10 MS/s; PERF.md §4)
+RECEIVER_BLOCKS = {"am": 10_240_000, "ssb": 20_480_000, "wfm": 10_240_000}
+
+
+def phase_receivers(dev: torch.device, tag: str) -> None:
+    """AM, SSB and WFM through RxPipeline on the card, each behind K1."""
+    n_blocks, n_cpu = 6, 2
+    for name in RECEIVERS:
+        pipe, src = receiver_pipeline(name, dev)
+        block = pipe.device_block
+        check(block == RECEIVER_BLOCKS[name], f"{name}: device block {block}")
+        check(pipe.fused_ingest, f"{name}: the i16 capture must go straight into K1")
+        t0 = time.perf_counter()
+        blocks = [testsource.to_iq_int16(testsource.generate(src, block, start_sample=b * block))
+                  for b in range(n_blocks)]
+        print(f"phase 6 {name}: generated {n_blocks} blocks of {block} i16 samples on the host "
+              f"in {time.perf_counter() - t0:.2f} s (set-up, not timed); channel plan "
+              f"{pipe.plans[0]} [{tag}]", flush=True)
+        list(pipe.run(lambda b, n: blocks[b], 2))  # warm-up of both paths
+        with plain_decimator():
+            list(pipe.run(lambda b, n: blocks[b], 2))
+
+        signal_s = n_blocks * block / PRODUCT_RATE
+        seconds = {"K1": [], "twin": []}
+        for path in ("twin", "K1", "K1", "twin"):
+            if path == "K1":
+                flat_decimate.launches = flat_decimate_tc.launches = 0
+                audio, elapsed = run_product(pipe, blocks)
+                launches = flat_decimate.launches
+                check(launches == n_blocks and flat_decimate_tc.launches == 0,
+                      f"{name}: K1 launched {launches} times, K1-TC "
+                      f"{flat_decimate_tc.launches}, for {n_blocks} blocks")
+            else:
+                with plain_decimator():
+                    twin_audio, elapsed = run_product(pipe, blocks)
+            seconds[path].append(elapsed)
+            print(f"phase 6 {name} ({path}): {n_blocks} blocks in {elapsed:.4f} s = "
+                  f"{elapsed / n_blocks * 1e3:.3f} ms/block, real-time factor "
+                  f"{signal_s / elapsed:.2f} [{tag}]", flush=True)
+
+        per_block = pipe.demod_cfgs[0].resampler_plan.block_out
+        check(audio.shape == (n_blocks * per_block,), f"{name}: audio shape {audio.shape}")
+        check(bool(np.isfinite(audio).all()), f"{name}: non-finite audio")
+        snr = tone_snr(audio[len(audio) // 2:].astype(np.float64), 1000.0, 48_000.0)
+        check(snr > 25.0, f"{name}: tone SNR {snr:.1f} dB")
+        agree = agreement_db(twin_audio, audio)
+        check(agree >= 80.0, f"{name}: K1 path vs twin path audio agreement {agree:.1f} dB")
+        cpu_pipe, _ = receiver_pipeline(name, "cpu")
+        t0 = time.perf_counter()
+        cpu_audio = np.concatenate([o["channels"][0]["audio"] for _, o in cpu_pipe.run(
+            lambda b, n: blocks[b], n_cpu)])
+        cpu_s = time.perf_counter() - t0
+        cpu_agree = agreement_db(cpu_audio, audio[:n_cpu * per_block])
+        check(cpu_agree >= 80.0, f"{name}: card vs CPU pipeline agreement {cpu_agree:.1f} dB")
+        k1_s, twin_s = (sum(seconds[k]) / 2 for k in ("K1", "twin"))
+        print(f"phase 6 {name}: K1 path {k1_s / n_blocks * 1e3:.3f} ms/block (real-time factor "
+              f"{signal_s / k1_s:.2f}), twin path {twin_s / n_blocks * 1e3:.3f} ms/block "
+              f"({signal_s / twin_s:.2f}), mean of 2 runs each; K1 launches {launches} "
+              f"in the last K1 run; tone SNR {snr:.2f} dB; K1 vs twin {agree:.2f} dB; card vs "
+              f"CPU pipeline on {n_cpu} blocks {cpu_agree:.2f} dB (CPU run {cpu_s:.1f} s) "
+              f"[{tag}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -585,6 +661,7 @@ def main() -> int:
     launches = phase_product(pipe, tag)
     phase_cli(tag)
     tc_launches = phase_bank(dev, tag)
+    phase_receivers(dev, tag)
 
     print(tag, flush=True)
     print(json.dumps({"kernels": [{

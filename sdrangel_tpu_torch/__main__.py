@@ -22,7 +22,12 @@ import time
 
 import numpy as np
 
-_CHANNEL_URIS = {"nfm": "sdrangel.channel.nfmdemod"}
+_CHANNEL_URIS = {
+    "nfm": "sdrangel.channel.nfmdemod",
+    "am": "sdrangel.channel.amdemod",
+    "ssb": "sdrangel.channel.ssbdemod",
+    "wfm": "sdrangel.channel.wfmdemod",
+}
 
 
 def _parse_channel(spec: str) -> tuple[str, float]:
@@ -48,11 +53,17 @@ def cmd_info(args) -> int:
 def cmd_demod(args) -> int:
     import torch
 
+    from .channels.registry import REGISTRY
     from .io import sdriq, testsource, wav
     from .runtime.engine import ChannelSpec, DeviceConfig, RxPipeline
 
     parsed = [_parse_channel(c) for c in args.channel]
-    settings = {} if args.squelch is None else {"squelch_db": args.squelch}
+
+    def settings(uri: str) -> dict:
+        # --squelch goes to the kinds that have a squelch (SSB's is its AGC's)
+        if args.squelch is None or "squelch_db" not in REGISTRY[uri].dynamic_fields:
+            return {}
+        return {"squelch_db": args.squelch}
 
     if args.infile:
         info, mm = sdriq.open_mmap(args.infile)
@@ -86,7 +97,7 @@ def cmd_demod(args) -> int:
         input_format=input_format,
     )
     pipe = RxPipeline(
-        frontend, [ChannelSpec(uri, offset, dict(settings)) for uri, offset in parsed],
+        frontend, [ChannelSpec(uri, offset, settings(uri)) for uri, offset in parsed],
         torch.device(args.device),
     )
     n_blocks = max(1, total // pipe.device_block)
@@ -127,8 +138,8 @@ def main(argv=None) -> int:
     pi.set_defaults(fn=cmd_info)
 
     pd = sub.add_parser("demod", help="demodulate channels to WAV")
-    pd.add_argument("--device", required=True,
-                    help="torch device to run on: cuda, cuda:N or cpu")
+    pd.add_argument("--device", default="cuda",
+                    help="torch device to run on: cuda (the default), cuda:N or cpu")
     pd.add_argument("--in", dest="infile", help=".sdriq input (else synthetic)")
     pd.add_argument("--rate", type=float, default=768000.0, help="synthetic source rate")
     pd.add_argument("--seconds", type=float, default=2.0, help="synthetic duration")
@@ -137,7 +148,7 @@ def main(argv=None) -> int:
     pd.add_argument("--log2-decim", type=int, default=0, choices=range(7))
     pd.add_argument("--fc-pos", default="cen", choices=["cen", "inf", "sup"])
     pd.add_argument("--channel", required=True, action="append",
-                    help="kind:offset_hz (nfm); repeatable")
+                    help="kind:offset_hz (nfm|am|ssb|wfm); repeatable")
     pd.add_argument("--squelch", type=float, default=None, help="squelch dB")
     pd.add_argument("--dc-correction", action="store_true")
     pd.add_argument("--iq-correction", action="store_true")

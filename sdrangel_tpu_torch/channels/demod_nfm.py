@@ -123,11 +123,7 @@ def process(
     tensors' device, as the JAX function's traced path does; without one the
     configured offset takes the host float64 path."""
     squelch_db = cfg.squelch_db if squelch_db is None else _per_channel(squelch_db, x)
-    if offset_hz is None:
-        inc = nco.freq_to_increment(-cfg.input_offset, cfg.channel_rate)
-    else:
-        offset = torch.as_tensor(offset_hz, dtype=torch.float32, device=x.device)
-        inc = nco.freq_to_increment_traced(-offset, cfg.channel_rate)
+    inc = nco.channel_increment(offset_hz, cfg.input_offset, cfg.channel_rate, x.device)
     nco_state, xm = nco.mix_block(state.nco, x, inc)
     resamp_state, ci = resampler.resample_block(state.resamp, xm, cfg.resampler_plan)
     discri_state, demod, magsq = phasediscri.discriminator_delta(

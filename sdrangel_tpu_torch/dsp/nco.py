@@ -37,6 +37,18 @@ def freq_to_increment(freq, sample_rate) -> np.ndarray:
     return (inc & _MASK).astype(np.uint32)
 
 
+def freq_to_increment_ref_quant(freq, sample_rate) -> np.ndarray:
+    """The reference NCO's tuning grid (nco.cpp:48-52): the 4096-entry
+    LUT's increment (freq·4096)/fs truncated toward zero, so an offset lands
+    on a multiple of fs/4096 (5000 Hz at 96 kHz mixes 4992.1875 Hz). As
+    whole LUT steps on the 2^32 wheel, the wheel visits the reference's
+    LUT indices exactly. A test-only parity mode (AM's `ref_nco_quant`)."""
+    steps = np.trunc(
+        np.asarray(freq, np.float64) * 4096.0 / np.asarray(sample_rate, np.float64)
+    ).astype(np.int64)
+    return ((steps << (_WHEEL_BITS - 12)) & _MASK).astype(np.uint32)
+
+
 def freq_to_increment_traced(freq: torch.Tensor, sample_rate: float) -> torch.Tensor:
     """The JAX `nco.freq_to_increment_traced` (nco.py:58-62) on tensors, as
     it runs inside jit — which is how every JAX caller runs it: XLA turns the
@@ -49,6 +61,18 @@ def freq_to_increment_traced(freq: torch.Tensor, sample_rate: float) -> torch.Te
     turns = torch.remainder(freq.to(torch.float32) * recip, 1.0)
     inc = (turns * float(1 << _WHEEL_BITS)).to(torch.int64)
     return torch.clamp(inc, max=_MASK)
+
+
+def channel_increment(offset_hz, input_offset: float, channel_rate: float,
+                      device: torch.device, host=freq_to_increment):
+    """The increment that mixes a channel down by its offset: the configured
+    `input_offset` through `host` (float64 on the host), or a per-block
+    override `offset_hz` (a number, or a tensor of the batch shape) as the
+    f32 increment on `device`, as the JAX demods' traced path does."""
+    if offset_hz is None:
+        return host(-input_offset, channel_rate)
+    offset = torch.as_tensor(offset_hz, dtype=torch.float32, device=device)
+    return freq_to_increment_traced(-offset, channel_rate)
 
 
 def nco_block(

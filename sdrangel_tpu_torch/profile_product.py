@@ -1,19 +1,21 @@
 """Where the product path's or the bank gear's time goes on the card.
 
     python -m sdrangel_tpu_torch.profile_product [--channels N] [--blocks B]
+    python -m sdrangel_tpu_torch.profile_product --receiver am|ssb|wfm [--blocks B]
     python -m sdrangel_tpu_torch.profile_product --gear bank [--blocks B]
 
 --gear product (the default): the product configuration of chip_smoke.py
 (10 MS/s i16, ÷64 cen, NFM at +20 kHz; with --channels N, N NFM channels
-spread over ±60 kHz). --gear bank: the bank gear (parallel/sharded.py) at
-the bench's chainsharded width — 12.288 MS/s i16 in 2^25-sample blocks,
-÷64 cen on K1-TC, PFB-4, 16 NFM at the bench's offsets, on the bench's
-input (uniform int16 in [−2048, 2048) from a seed). After a warm-up it
+spread over ±60 kHz; with --receiver, one of chip_smoke.py phase 6's
+receivers instead, `RECEIVERS`). --gear bank: the bank gear
+(parallel/sharded.py) at the bench's chainsharded width — 12.288 MS/s i16
+in 2^25-sample blocks, ÷64 cen on K1-TC, PFB-4, 16 NFM at the bench's
+offsets, on the bench's input (uniform int16 in [−2048, 2048) from a seed). After a warm-up it
 prints:
   * product gear: the per-layer split, each stage of the step run on its
     own and synchronized (host clock, launch overhead included) — upload
-    (host copy into pinned memory + H2D), the ÷64 decimator, the
-    channelizer, the NFM demods, taps, fetch of the outputs;
+    (host copy into pinned memory + H2D), the ÷2^k decimator, the
+    channelizer, the demods, taps, fetch of the outputs;
   * the steady loop (upload, step, fetch one block behind): seconds per
     block; then, from torch.profiler over a second run, the device time by
     kernel and the device's busy share of the steady loop's wall time;
@@ -44,6 +46,28 @@ from .runtime.engine import ChannelSpec, DeviceConfig, RxPipeline, _to_host
 
 RATE = 10e6
 NFM = sharded.NFM_URI
+#: the AM, SSB and WFM product configurations (chip_smoke.py phase 6), each
+#: one channel on a 10 MS/s i16 capture: name -> (uri, log2_decim, channel
+#: offset Hz, requested rate, test source). AM: a 1 kHz tone at 80 % depth
+#: at +20 kHz; SSB: a USB tone 1 kHz above a −20 kHz carrier; WFM: a 1 kHz
+#: tone at 75 kHz deviation, ÷32, a 250 kHz request (312.5 kS/s channel)
+RECEIVERS = {
+    "am": ("sdrangel.channel.amdemod", 6, 20e3, 48e3,
+           dict(modulation="am", am_depth=0.8, carrier_freq=20e3)),
+    "ssb": ("sdrangel.channel.ssbdemod", 6, -20e3, 48e3,
+            dict(modulation="none", carrier_freq=-19e3)),
+    "wfm": ("sdrangel.channel.wfmdemod", 5, 0.0, 250e3,
+            dict(modulation="fm", fm_deviation=75e3, carrier_freq=0.0)),
+}
+
+
+def receiver_pipeline(name: str, device: torch.device | str
+                      ) -> tuple[RxPipeline, testsource.TestSourceConfig]:
+    """RECEIVERS[name] as a pipeline on `device`, and its test source."""
+    uri, log2, offset, requested, src = RECEIVERS[name]
+    pipe = RxPipeline(DeviceConfig(RATE, log2_decim=log2),
+                      [ChannelSpec(uri, offset, {}, requested)], device)
+    return pipe, testsource.TestSourceConfig(sample_rate=RATE, **src)
 
 
 def chainsharded_config() -> sharded.ShardedPipelineConfig:
@@ -84,7 +108,7 @@ def layer_split(pipe: RxPipeline, blocks: list[np.ndarray]) -> dict[str, float]:
         add("upload (pin + H2D)", ms)
         (dev_state, bb), ms = _timed(
             lambda: dec.decimate_flat_raw(state["dev_casc"], raw, pipe.frontend.log2_decim))
-        add("ingest + K1 ÷64", ms)
+        add("ingest + K1 ÷2^k", ms)
         ys = []
         for i, plan in enumerate(pipe.plans):
             (cs, y), ms = _timed(lambda: chan.channelize(state["chan"][i], bb, plan))
@@ -92,7 +116,7 @@ def layer_split(pipe: RxPipeline, blocks: list[np.ndarray]) -> dict[str, float]:
             ys.append(y)
         for i, (kind, cfg) in enumerate(zip(pipe.kinds, pipe.demod_cfgs)):
             _, ms = _timed(lambda: kind.process(state["demod"][i], ys[i], cfg))
-            add("NFM demod", ms)
+            add("demod", ms)
         _, ms = _timed(lambda: (
             dsp_spectrum.power_spectrum(state["spectrum"], bb, pipe.spectrum_cfg),
             dsp_scope.project(bb[:1024], dsp_scope.Projection.MAG_DB)))
@@ -207,6 +231,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="sdrangel_tpu_torch.profile_product")
     p.add_argument("--gear", choices=("product", "bank"), default="product")
     p.add_argument("--channels", type=int, default=1)
+    p.add_argument("--receiver", choices=sorted(RECEIVERS), default=None,
+                   help="one AM, SSB or WFM channel in place of the NFM channels")
     p.add_argument("--blocks", type=int, default=6)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -214,18 +240,20 @@ def main(argv=None) -> int:
         return 1
     if args.gear == "bank":
         return main_bank(args.blocks)
-    offsets = np.linspace(-60e3, 60e3, args.channels) if args.channels > 1 else [20e3]
-    pipe = RxPipeline(
-        DeviceConfig(RATE, log2_decim=6),
-        [ChannelSpec("sdrangel.channel.nfmdemod", float(f), {"squelch_db": -60.0})
-         for f in offsets],
-        torch.device("cuda"))
-    cfg = testsource.TestSourceConfig(sample_rate=RATE, carrier_freq=20e3, modulation="fm")
+    if args.receiver:
+        pipe, cfg = receiver_pipeline(args.receiver, "cuda")
+        what = f"1 {args.receiver.upper()} channel, ÷{1 << pipe.frontend.log2_decim}"
+    else:
+        offsets = np.linspace(-60e3, 60e3, args.channels) if args.channels > 1 else [20e3]
+        pipe = RxPipeline(
+            DeviceConfig(RATE, log2_decim=6),
+            [ChannelSpec(NFM, float(f), {"squelch_db": -60.0}) for f in offsets], "cuda")
+        cfg = testsource.TestSourceConfig(sample_rate=RATE, carrier_freq=20e3, modulation="fm")
+        what = f"{args.channels} NFM channel(s), ÷64"
     blocks = [testsource.to_iq_int16(testsource.generate(
         cfg, pipe.device_block, start_sample=b * pipe.device_block)) for b in range(args.blocks)]
     name = torch.cuda.get_device_name(0)
-    print(f"{name}: {args.channels} NFM channel(s), block {pipe.device_block}, "
-          f"{args.blocks} blocks", flush=True)
+    print(f"{name}: {what}, block {pipe.device_block}, {args.blocks} blocks", flush=True)
     list(pipe.run(lambda b, n: blocks[b], 2))  # warm-up
 
     for stage, ms in layer_split(pipe, blocks).items():

@@ -77,14 +77,15 @@ class RxPipeline:
     """The per-block Rx step on one torch device.
 
     frontend: the device front end; channels: the attached channels;
-    device: where every tensor of the pipeline lives (no default).
+    device: where every tensor of the pipeline lives — the card unless the
+    caller asks for the CPU; without a card, "cuda" raises.
     """
 
     def __init__(
         self,
         frontend: DeviceConfig,
         channels: list[ChannelSpec],
-        device: torch.device | str,
+        device: torch.device | str = "cuda",
         block_size: int | None = None,
         spectrum_cfg: dsp_spectrum.SpectrumConfig | None = None,
     ):
@@ -120,13 +121,22 @@ class RxPipeline:
 
     def _solve_block_size(self, requested: int | None) -> int:
         """Baseband block length divisible as every stage needs: ×4 for the
-        rotation patterns, ×2^stages for each channel's cascade, and the
-        resampler's rational numerator p at the channel rate."""
+        rotation patterns, ×2^stages for each channel's cascade, the
+        resampler's rational numerator p at the channel rate, and, for a
+        kind that runs an fftfilt, its hop (fft_len/2) at the channel rate
+        and, through the resampler, at the audio rate."""
         need = 4 << self.frontend.log2_decim
-        for plan in self.plans:
+        for spec, plan, kind in zip(self.channel_specs, self.plans, self.kinds):
             k = len(plan.signs)
-            p = Fraction(plan.channel_rate / 48000.0).limit_denominator(1 << 20).numerator
+            frac = Fraction(plan.channel_rate / 48000.0).limit_denominator(1 << 20)
+            p = frac.numerator
             need = math.lcm(need, 4 << k, p << k)
+            if kind.needs_fft_hop:
+                # the fftfilt runs at the channel rate (WFM) or the audio
+                # rate (SSB): whole hops at both
+                hop = _config_field(kind.config_cls, spec.settings, "fft_len") // 2
+                need = math.lcm(need, hop << k,
+                                (p * hop // math.gcd(frac.denominator, hop)) << k)
         block = need
         target = requested or (1 << 17)
         while block < target:
@@ -164,7 +174,7 @@ class RxPipeline:
         """The JAX RxPipeline's state (fetched as numpy, e.g. with
         jax.tree.map(np.asarray, state)) as this pipeline's state. Fields are
         matched by name against `init_state()`; JAX fields the port does not
-        carry (the Goertzel states) are dropped. A complex64 flat tail
+        carry (the Goertzel states, AM's sync-mode state) are dropped. A complex64 flat tail
         becomes the fused-ingest int16 raw tail (×32768, exact for values
         that came from int16)."""
         return _from_numpy(self.init_state(), tree)
@@ -276,6 +286,14 @@ def _to_host(outs: dict) -> dict:
         "spectrum": outs["spectrum"].cpu().numpy(),
         "scope": outs["scope"].cpu().numpy(),
     }
+
+
+def _config_field(config_cls: type, settings: dict, name: str):
+    """A config field as the channel will bind it: the spec's override, else
+    the dataclass default."""
+    if name in settings:
+        return settings[name]
+    return next(f.default for f in dataclasses.fields(config_cls) if f.name == name)
 
 
 def _from_numpy(template: Any, value: Any) -> Any:

@@ -6,6 +6,11 @@ Configuration of tests/test_e2e.py:43-75: 768 kS/s, ÷2, NFM at +100 kHz
 are equal, the spectrum is within 1e-2 dB within 60 dB of its peak and
 within 8 ε_f32 of the peak's amplitude at the deeper live bins (above
 −120 dB; see `_compare_spectrum`), and the scope within 1e-5.
+
+The AM, SSB and WFM receivers on the same front end (alone, and NFM+AM+SSB
+in one pipeline; WFM asks for 250 kHz): each channel's audio within 2e-5
+of the JAX audio's block peak, its power and squelch meter as JAX's; the
+block-size solver equal to the JAX engine's, raising where it raises.
 """
 
 import os
@@ -261,3 +266,203 @@ def test_cli_demod_sdriq_capture_and_info(tmp_path, capsys):
                  "--channel", "nfm:-50000", "--squelch", "-60", "--out", out]) == 0
     data, fs = wav.read_wav(out)
     assert tone_snr(data[:, 0].astype(np.float64)[len(data) // 2:] / 32768.0, 1000.0, fs) > 25.0
+
+
+# -- the AM, SSB and WFM receivers on the pipeline ---------------------------
+
+AM, SSB, WFM = ("sdrangel.channel.amdemod", "sdrangel.channel.ssbdemod",
+                "sdrangel.channel.wfmdemod")
+#: (uri, offset, settings, requested rate), and the signal each channel gets
+MIXES = {
+    "am": [(AM, 100_000.0, {"squelch_db": -60.0}, 48_000.0)],
+    "ssb": [(SSB, -50_000.0, {}, 48_000.0)],
+    "wfm": [(WFM, 0.0, {}, 250_000.0)],
+    "nfm_am_ssb": [(NFM, 100_000.0, {"squelch_db": -60.0}, 48_000.0),
+                   (AM, -100_000.0, {"squelch_db": -60.0}, 48_000.0),
+                   (SSB, 50_000.0, {"usb": False}, 48_000.0)],
+}
+
+
+def _signal(uri, offset, settings, size):
+    """AM (1 kHz, 80 %), an SSB tone 1 kHz into the sideband, wideband FM
+    (75 kHz deviation) or NFM (5 kHz), at the channel's offset."""
+    tt = np.arange(size) / RATE
+    tone = np.sin(2 * np.pi * 1000.0 * tt)
+    if uri == AM:
+        return 0.3 * (1.0 + 0.8 * tone) * np.exp(2j * np.pi * offset * tt)
+    if uri == SSB:
+        side = 1.0 if settings.get("usb", True) else -1.0
+        return 0.3 * np.exp(2j * np.pi * (offset + side * 1000.0) * tt)
+    dev = 75_000.0 if uri == WFM else 5000.0
+    return 0.3 * np.exp(1j * (2 * np.pi * offset * tt - dev / 1000.0 * np.cos(2 * np.pi * 1000.0 * tt)))
+
+
+def _mix_pipes(chans, block_size=32_768):
+    jp = jeng.RxPipeline(jeng.DeviceConfig(RATE, log2_decim=1),
+                         [jeng.ChannelSpec(*c) for c in chans], block_size=block_size)
+    pp = peng.RxPipeline(peng.DeviceConfig(RATE, log2_decim=1),
+                         [peng.ChannelSpec(*c) for c in chans], CPU, block_size=block_size)
+    assert pp.device_block == jp.device_block
+    size = 3 * pp.device_block
+    iq = sum(_signal(u, o, s, size) for u, o, s, _ in chans)
+    iq = iq + 0.002 * np.random.default_rng(41).standard_normal((size, 2)) @ [1, 1j]
+    raw = np.empty((size, 2), np.int16)
+    raw[:, 0] = np.clip(iq.real * 32768, -32768, 32767)
+    raw[:, 1] = np.clip(iq.imag * 32768, -32768, 32767)
+    return jp, pp, raw.reshape(3, pp.device_block, 2)
+
+
+def _compare_channels(j, p):
+    """Each channel's audio within 2e-5 of the JAX audio's block peak (2e-5
+    absolute below a peak of 1), its power within 1e-5 relative, its
+    squelch meter equal. Returns each channel's peak."""
+    peaks = []
+    for c, (jc, pc) in enumerate(zip(j["channels"], p["channels"])):
+        ja, pa = np.asarray(jc["audio"]), n(pc["audio"])
+        assert pa.shape == ja.shape
+        peaks.append(float(np.abs(ja).max()))
+        err = np.abs(pa.astype(np.float64) - ja).max()
+        assert err <= 2e-5 * max(1.0, np.abs(ja).max()), f"channel {c}: {err:.3e}"
+        np.testing.assert_allclose(float(pc["power"]), float(jc["power"]), rtol=1e-5)
+        assert ("squelch" in pc) == ("squelch" in jc)
+        if "squelch" in jc:
+            assert bool(pc["squelch"]) == bool(jc["squelch"])
+    return peaks
+
+
+@pytest.mark.parametrize("mix", list(MIXES))
+def test_receivers_on_the_pipeline_match_jax(mix):
+    jp, pp, raws = _mix_pipes(MIXES[mix])
+    assert [p.signs for p in pp.plans] == [p.signs for p in jp.plans]
+    js, ps = jp.init_state(), pp.init_state()
+    for raw in raws:
+        js, jo = jp._step(js, jnp.asarray(raw))
+        ps, po = pp.step(ps, t(raw))
+        peaks = _compare_channels(jo, po)
+    # SSB's 6144-sample AGC delay line holds its first block back
+    assert min(peaks) > 0.01, f"a channel stayed silent: peaks {peaks}"
+
+
+def _leaves_by_name(port, jax_tree):
+    """(port leaf, JAX leaf) pairs, matched by field name along the port's
+    structure, as `state_from_numpy` matches them."""
+    if hasattr(port, "_fields"):
+        for f in port._fields:
+            yield from _leaves_by_name(getattr(port, f), getattr(jax_tree, f))
+    elif isinstance(port, (list, tuple)):
+        assert len(port) == len(jax_tree)
+        for p, j in zip(port, jax_tree):
+            yield from _leaves_by_name(p, j)
+    else:
+        yield port, jax_tree
+
+
+def test_receiver_state_handover_from_jax():
+    """A JAX AM+SSB+WFM pipeline state after 2 blocks maps onto the port's
+    and back bit for bit, field by field (AM's sync-mode fields, which the
+    port does not carry, dropped), and carries the port through the third
+    block."""
+    jp, pp, raws = _mix_pipes(MIXES["am"] + MIXES["ssb"] + MIXES["wfm"])
+    js = jp.init_state()
+    for raw in raws[:2]:
+        js, _ = jp._step(js, jnp.asarray(raw))
+    jtree = jax.tree.map(np.asarray, js)
+    handed = pp.state_from_numpy(jtree)
+    back = pp.state_to_numpy(handed)
+    pairs = list(_leaves_by_name(back["demod"], jtree["demod"]))
+    assert len(pairs) == len(jax.tree.leaves(back["demod"]))
+    for got, want in pairs:
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    _, jo = jp._step(js, jnp.asarray(raws[2]))
+    _, po = pp.step(handed, t(raws[2]))
+    assert min(_compare_channels(jo, po)) > 0.01
+
+
+AUDIO_48K = 48_000.0
+
+
+@pytest.mark.parametrize("rate,log2,chans", [
+    # the three rows of the slice's table and WFM at the default request
+    (10e6, 6, [(AM, 20_000.0, {}, AUDIO_48K)]),
+    (10e6, 6, [(SSB, -20_000.0, {}, AUDIO_48K)]),
+    (10e6, 5, [(WFM, 0.0, {}, 250e3)]),
+    (10e6, 6, [(WFM, 0.0, {}, AUDIO_48K)]),  # 40,960,000 device samples: raises
+    (10e6, 6, [(NFM, 20_000.0, {}, AUDIO_48K)]),
+    (RATE, 1, MIXES["nfm_am_ssb"]),
+    (RATE, 1, [(AM, 100_000.0, {}, AUDIO_48K), (SSB, -50_000.0, {}, AUDIO_48K),
+               (WFM, 0.0, {}, AUDIO_48K)]),
+    (2.4e6, 3, [(SSB, 7_000.0, {}, AUDIO_48K), (WFM, 0.0, {}, 250e3)]),
+    (1.92e6, 2, [(AM, -10_000.0, {}, AUDIO_48K), (SSB, 60_000.0, {}, AUDIO_48K)]),
+])
+def test_block_size_solver_equals_jax(rate, log2, chans):
+    def solve(mod, **kw):
+        try:
+            pipe = mod.RxPipeline(mod.DeviceConfig(rate, log2_decim=log2),
+                                  [mod.ChannelSpec(*c) for c in chans], **kw)
+        except ValueError as e:
+            assert "device samples" in str(e)
+            return "raises"
+        return pipe.base_block, pipe.device_block
+
+    want = solve(jeng)
+    assert solve(peng, device=CPU) == want
+    if chans == [(WFM, 0.0, {}, AUDIO_48K)]:
+        assert want == "raises"
+    elif rate == 10e6:
+        assert want[1] in (10_240_000, 20_480_000)
+
+
+@pytest.mark.parametrize("rate,chan", [
+    (RATE, (SSB, -50_000.0, {"fft_len": 2048}, AUDIO_48K)),
+    (1.25e6, (WFM, 0.0, {"fft_len": 2048}, 250e3)),  # 312.5 kS/s, p/q = 625/96
+])
+def test_block_size_solver_takes_the_hop_from_fft_len(rate, chan):
+    """A 2048-point fftfilt needs whole 1024-sample hops where it runs (SSB
+    at the audio rate, WFM at the channel rate): the least block the solver
+    gives holds them, and the pipeline steps on it."""
+    pp = peng.RxPipeline(peng.DeviceConfig(rate, log2_decim=1), [peng.ChannelSpec(*chan)],
+                         CPU, block_size=1)
+    (cfg,) = pp.demod_cfgs
+    assert cfg.fft_len == 2048
+    fed = cfg.resampler_plan.block_out if chan[0] == SSB else cfg.block_in
+    assert fed % 1024 == 0, fed
+    raw = np.zeros((pp.device_block, 2), np.int16)
+    raw[:, 0] = 1000
+    _, po = pp.step(pp.init_state(), t(raw))
+    assert np.all(np.isfinite(n(po["channels"][0]["audio"])))
+
+
+def test_default_device_is_the_card():
+    """RxPipeline and `demod` run on cuda unless the caller asks for the
+    CPU; without a card that raises, with no fallback."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; this checks the no-card refusal")
+    from sdrangel_tpu_torch.__main__ import main
+
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        peng.RxPipeline(peng.DeviceConfig(RATE, log2_decim=1),
+                        [peng.ChannelSpec(AM, 100_000.0, {})])
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        main(["demod", "--test-am", "1000", "--channel", "am:100000", "--out", "unused.wav"])
+
+
+def test_cli_demod_am_ssb_wfm_without_jax(tmp_path):
+    """One `demod --device cpu` with an AM, an SSB and a WFM channel, jax
+    and the JAX package unimportable: three WAVs, the AM tone above 25 dB."""
+    from sdrangel_tpu_torch.io import wav
+
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_JAX, "demod", "--device", "cpu", "--test-am", "1000",
+         "--rate", "768000", "--log2-decim", "1", "--channel", "am:100000",
+         "--channel", "ssb:-50000", "--channel", "wfm:0", "--squelch", "-60",
+         "--seconds", "1.1", "--out", str(tmp_path / "a.wav")],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert proc.returncode == 0, proc.stderr
+    data, fs = wav.read_wav(str(tmp_path / "a.wav"))
+    assert tone_snr(data[:, 0].astype(np.float64)[len(data) // 2:] / 32768.0, 1000.0, fs) > 25.0
+    for c in (1, 2):
+        extra, _ = wav.read_wav(str(tmp_path / f"a.ch{c}.wav"))
+        assert len(extra) == len(data)

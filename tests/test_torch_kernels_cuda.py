@@ -156,6 +156,34 @@ def test_pipeline_on_card_matches_cpu(cuda_device, frontend):
     assert agreement_db(want, got) >= 80.0
 
 
+@pytest.mark.parametrize("uri,offset,requested,src", [
+    ("sdrangel.channel.amdemod", 100_000.0, 48_000.0,
+     dict(modulation="am", am_depth=0.8, carrier_freq=100_000.0)),
+    ("sdrangel.channel.ssbdemod", -50_000.0, 48_000.0,  # a USB tone 1 kHz up
+     dict(modulation="none", carrier_freq=-49_000.0)),
+    ("sdrangel.channel.wfmdemod", 0.0, 250_000.0,
+     dict(modulation="fm", fm_deviation=75_000.0, carrier_freq=0.0)),
+])
+def test_receiver_pipeline_on_card_matches_cpu(cuda_device, uri, offset, requested, src):
+    """AM, SSB and WFM on the card against the CPU pipeline: ≥ 80 dB over 3
+    blocks, K1 launched once per block."""
+    chans = [peng.ChannelSpec(uri, offset, {}, requested)]
+    cfg = peng.DeviceConfig(768_000.0, log2_decim=1)
+    gpu = peng.RxPipeline(cfg, chans, cuda_device, block_size=32_768)
+    cpu = peng.RxPipeline(cfg, chans, "cpu", block_size=32_768)
+    source = testsource.TestSourceConfig(sample_rate=768_000.0, amplitude=0.4, **src)
+    raw = testsource.to_iq_int16(testsource.generate(source, 3 * gpu.device_block))
+    launches = flat_decimate.launches
+    got = [o["channels"][0]["audio"] for _, o in gpu.run(
+        lambda b, c: raw[b * c:(b + 1) * c], 3)]
+    want = [o["channels"][0]["audio"] for _, o in cpu.run(
+        lambda b, c: raw[b * c:(b + 1) * c], 3)]
+    assert flat_decimate.launches == launches + 3
+    got, want = np.concatenate(got), np.concatenate(want)
+    assert np.any(want != 0.0)
+    assert agreement_db(want, got) >= 80.0
+
+
 def _raw(rng, pairs, device):
     return t(rng.integers(-32768, 32767, size=(pairs, 2), endpoint=True,
                           dtype=np.int16)).to(device)

@@ -6,6 +6,8 @@ blocks first; its state, handed over with `state_from_numpy`, starts the
 port, and both then run 3 more blocks of the same input. Every channel's
 audio agrees to ≥ 80 dB with the JAX audio in every block. The input is an
 FM carrier plus white noise, so each demod's squelch (−100 dB) is open.
+A bank of an NFM group beside an AM group is held to the JAX gear the
+same way.
 """
 
 import os
@@ -96,6 +98,44 @@ def test_gear_matches_jax_on_one_card(gear):
     groups_p, groups_j = (back[0], jtree[0]) if jc.pfb_m else (back, jtree)
     np.testing.assert_array_equal(groups_p[0][1].nco.phase, groups_j[0][1].nco.phase)
     np.testing.assert_array_equal(groups_p[0][1].squelch.count, groups_j[0][1].squelch.count)
+
+
+def test_am_group_beside_nfm_group_matches_jax():
+    """A bank of two groups, 2 NFM and 2 AM demods (chan_stages=1, 2^17
+    blocks, so each AM squelch gate opens within the run), against the JAX
+    gear with the same groups: state handed over after 2 blocks, then every
+    channel ≥ 80 dB in each of 3 blocks."""
+    groups = (("sdrangel.channel.nfmdemod", {"squelch_db": -100.0, "squelch_gate_ms": 1.0}),
+              ("sdrangel.channel.amdemod", {"squelch_db": -100.0}))
+    kw = dict(BASE, block=1 << 17, chan_stages=1)
+    kw.pop("n_channels")
+    jc = jsh.ShardedPipelineConfig(n_time=1, n_channel=1, **kw, bank=tuple(
+        jsh.BankGroup(u, 2, s) for u, s in groups))
+    pc = psh.ShardedPipelineConfig(n_time=1, n_channel=1, **kw, bank=tuple(
+        psh.BankGroup(u, 2, s) for u, s in groups))
+    jstep, jinit = jsh.build_sharded_step(jc, jsh.make_mesh(1, 1, jax.devices()[:1]))
+    pstep, _ = psh.build_sharded_step(pc, CPU)
+    nfm_offs = np.asarray([30_000.0, 31_440.0], np.float32)
+    am_offs = np.asarray([-40_000.0, -41_440.0], np.float32)
+    fm = _raw(jc, 5, 30_000.0).astype(np.float64)
+    tt = np.arange(5 * jc.block) / jc.device_rate
+    am = 0.3 * (1.0 + 0.8 * np.sin(2 * np.pi * 1000.0 * tt)) * np.exp(-2j * np.pi * 40_000.0 * tt)
+    raws = np.clip(fm.reshape(-1, 2) + 32768.0 * np.stack([am.real, am.imag], -1),
+                   -32768, 32767).astype(np.int16).reshape(5, jc.block, 2)
+    js, jcarry = jinit()
+    jargs = (jnp.asarray(nfm_offs), jnp.asarray(am_offs))
+    for raw in raws[:2]:
+        js, _, jcarry = jstep(js, jnp.asarray(raw), jcarry, jargs)
+    ps, pcarry = psh.state_from_numpy(pc, jax.tree.map(np.asarray, js), np.asarray(jcarry), CPU)
+    for raw in raws[2:]:
+        js, ja, jcarry = jstep(js, jnp.asarray(raw), jcarry, jargs)
+        ps, pa, pcarry = pstep(ps, t(raw), pcarry, (t(nfm_offs), t(am_offs)))
+        for g in range(2):
+            jg = np.asarray(ja[g])
+            assert pa[g].shape == jg.shape == (2, 512)
+            for c in range(2):
+                assert np.any(jg[c] != 0.0), f"group {g} channel {c}: silent"
+                assert agreement_db(jg[c], n(pa[g][c])) >= 80.0, f"group {g} channel {c}"
 
 
 def test_spectrum_tap_matches_jax():
