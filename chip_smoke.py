@@ -39,7 +39,18 @@ power limit as nvidia-smi reports them):
      tone at 75 kHz deviation), 6 blocks each at their device blocks
      (10,240,000, 20,480,000, 10,240,000), timed twin, K1, K1, twin; per
      kind K1 launched once per block, the tone above 25 dB, ≥ 80 dB against
-     the twin path and against the CPU pipeline on the first 2 blocks.
+     the twin path and against the CPU pipeline on the first 2 blocks;
+  7. the REST server: phase 3's first 6 blocks written to a .sdriq with the
+     port's SdriqWriter, the port's server started in this process on
+     127.0.0.1 with a Session on cuda, and driven over HTTP only: a device
+     set playing the capture (÷64, run_blocks 6, publish_every 1) with an
+     NFM channel at +20 kHz (squelch −60 dB), run to idle, its reports and
+     its audio WAV read back; once streaming from the file and once with
+     file_preload. K1 launched 6 times in each run, the tone above 25 dB,
+     preload audio equal to streaming audio bit for bit, ≥ 80 dB against
+     RxPipeline.run on the same blocks, the set idle with no error; each
+     run's ms per block and real-time factor from the device report, and
+     the streaming feed's ms per block alone.
 Then a JSON line of the kernels, and last the ok line. Any failed check
 raises: the script then exits non-zero and prints no ok line. It needs a
 card; without one it exits non-zero at once.
@@ -48,13 +59,17 @@ card; without one it exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
+import wave
 
 import numpy as np
 import torch
@@ -62,7 +77,8 @@ import torch
 import torch.nn.functional as F
 
 import sdrangel_tpu_torch.dsp.decimators as dec
-from sdrangel_tpu_torch.io import testsource, wav
+from sdrangel_tpu_torch.api.server import make_server
+from sdrangel_tpu_torch.io import sdriq, testsource, wav
 from sdrangel_tpu_torch.kernels import build
 from sdrangel_tpu_torch.kernels import decimator as kdec
 from sdrangel_tpu_torch.kernels import flat_decimate as k1_kernel
@@ -81,6 +97,7 @@ from sdrangel_tpu_torch.profile_product import (
     receiver_pipeline,
 )
 from sdrangel_tpu_torch.runtime.engine import ChannelSpec, DeviceConfig, RxPipeline
+from sdrangel_tpu_torch.runtime.session import Session
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ATOL = 2e-5  # K1 vs twin, the Pallas kernel's own tolerance
@@ -390,7 +407,7 @@ def plain_decimator():
         dec.flat_decimate = real_kernel
 
 
-def phase_product(pipe: RxPipeline, tag: str) -> int:
+def phase_product(pipe: RxPipeline, tag: str) -> tuple[int, list[np.ndarray]]:
     n_blocks = 8
     check(pipe.device_block == PRODUCT_BLOCK, f"device block {pipe.device_block}")
     t0 = time.perf_counter()
@@ -431,7 +448,7 @@ def phase_product(pipe: RxPipeline, tag: str) -> int:
           f"({signal_s / twin_s:.2f}), mean of 2 runs each; K1 launches {launches} in the "
           f"last K1 run; tone SNR {snr:.2f} dB; K1 vs twin audio agreement {agree:.2f} dB "
           f"[{tag}]", flush=True)
-    return launches
+    return launches, blocks
 
 
 def phase_cli(tag: str) -> None:
@@ -614,6 +631,128 @@ def phase_receivers(dev: torch.device, tag: str) -> None:
               f"[{tag}]", flush=True)
 
 
+SERVER_BLOCKS = 6
+
+
+def http(base: str, path: str, method: str = "GET", body: dict | None = None):
+    """One request to the server: (status, JSON reply, or the raw bytes of a
+    WAV)."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, method=method)
+    if data:
+        req.add_header("Content-Type", "application/json")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            raw = r.read()
+            return r.status, (raw if r.headers["Content-Type"] == "audio/wav" else json.loads(raw))
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def phase_server(pipe: RxPipeline, blocks: list[np.ndarray], tag: str) -> dict:
+    """The REST server on the card, driven over HTTP, streaming and preloaded."""
+    blocks = blocks[:SERVER_BLOCKS]
+    check(len(blocks) == SERVER_BLOCKS, "phase 3 made too few blocks")
+    # the reference: RxPipeline.run on the same blocks, its audio through the
+    # WAV egress's int16 rounding
+    ref = np.concatenate([o["channels"][0]["audio"] for _, o in pipe.run(
+        lambda b, n: blocks[b], SERVER_BLOCKS)])
+    ref_pcm = np.clip(ref * 32768.0, -32768, 32767).astype(np.int16)
+    session = Session(device=DEVICE)
+    srv = make_server(session, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, kwargs={"poll_interval": 0.05},
+                              daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    runs = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "product.sdriq")
+            t0 = time.perf_counter()
+            writer = sdriq.SdriqWriter(path, sample_rate=int(PRODUCT_RATE))
+            for b in blocks:
+                writer.write(b)
+            writer.close()
+            print(f"phase 7 server: wrote {SERVER_BLOCKS} blocks of phase 3 to a .sdriq "
+                  f"({os.path.getsize(path) / 1e6:.1f} MB) in {time.perf_counter() - t0:.2f} s; "
+                  f"server on {base} [{tag}]", flush=True)
+            for i, preload in enumerate((False, True)):
+                name = "preload" if preload else "streaming"
+                code, reply = http(base, "/sdrangel/devicesets", "POST")
+                check(code == 201 and reply["index"] == i, f"{name}: add device set {reply}")
+                code, reply = http(base, f"/sdrangel/deviceset/{i}/device/settings", "PATCH", {
+                    "kind": "filesource", "file_path": path, "log2_decim": 6,
+                    "run_blocks": SERVER_BLOCKS, "publish_every": 1, "file_preload": preload})
+                check(code == 200, f"{name}: device settings {reply}")
+                code, reply = http(base, f"/sdrangel/deviceset/{i}/channel", "POST", {
+                    "channelType": NFM, "inputFrequencyOffset": 20_000.0, "squelch_db": -60.0})
+                check(code == 201, f"{name}: add channel {reply}")
+                flat_decimate.launches = flat_decimate_tc.launches = 0
+                t0 = time.perf_counter()
+                code, reply = http(base, f"/sdrangel/deviceset/{i}/device/run", "POST")
+                check(code == 200, f"{name}: run {reply}")
+                while http(base, f"/sdrangel/deviceset/{i}")[1]["state"] == "running":
+                    check(time.perf_counter() - t0 < 300, f"{name}: still running after 300 s")
+                    time.sleep(0.01)
+                wall = time.perf_counter() - t0
+                launches, tc_launches = flat_decimate.launches, flat_decimate_tc.launches
+                _, summary = http(base, "/sdrangel")
+                _, device = http(base, f"/sdrangel/deviceset/{i}/device/report")
+                _, channel = http(base, f"/sdrangel/deviceset/{i}/channel/0/report")
+                code, data = http(base, f"/sdrangel/deviceset/{i}/channel/0/audio")
+                check(code == 200, f"{name}: audio {data}")
+                with wave.open(io.BytesIO(data)) as w:
+                    check(w.getframerate() == 48_000, f"{name}: WAV rate {w.getframerate()}")
+                    pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+                entry = summary["devicesetlist"]["deviceSets"][i]
+                check(entry["state"] == "idle" and not entry["error"],
+                      f"{name}: /sdrangel reports {entry['state']} {entry['error']!r}")
+                check(device["blocksProcessed"] == SERVER_BLOCKS,
+                      f"{name}: {device['blocksProcessed']} blocks processed")
+                check(launches == SERVER_BLOCKS and tc_launches == 0,
+                      f"{name}: K1 launched {launches} times, K1-TC {tc_launches}, for "
+                      f"{SERVER_BLOCKS} blocks")
+                check(pcm.shape == ref_pcm.shape, f"{name}: audio {pcm.shape} vs {ref_pcm.shape}")
+                snr = tone_snr(pcm[len(pcm) // 2:].astype(np.float64) / 32768.0, 1000.0, 48_000.0)
+                check(snr > 25.0, f"{name}: tone SNR {snr:.1f} dB")
+                agree = agreement_db(ref_pcm, pcm)
+                check(agree >= 80.0, f"{name}: server audio vs RxPipeline.run {agree:.1f} dB")
+                runs[name] = {"pcm": pcm, "launches": launches,
+                              "ms_per_block": device["elapsedSeconds"] / SERVER_BLOCKS * 1e3,
+                              "rtf": device["realtimeFactor"]}
+                print(f"phase 7 server ({name}): {SERVER_BLOCKS} blocks of {pipe.device_block} "
+                      f"i16 samples, {runs[name]['ms_per_block']:.3f} ms/block from the first "
+                      f"queued block to the last publish (device report elapsedSeconds "
+                      f"{device['elapsedSeconds']:.4f} s), real-time factor {device['realtimeFactor']:.2f}"
+                      f"; POST run to idle {wall:.3f} s host clock; K1 launches {launches}, "
+                      f"K1-TC {tc_launches}; channel power {channel['channelPowerDB']:.2f} dB, "
+                      f"squelch {channel['squelch']}, {channel['audioSamples']} audio samples; "
+                      f"tone SNR {snr:.2f} dB; vs RxPipeline.run {agree:.2f} dB [{tag}]",
+                      flush=True)
+            # the streaming run's feed alone: memmap read, copy, pin, H2D
+            _, mm = sdriq.open_mmap(path)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in range(SERVER_BLOCKS):
+                pipe.upload(sdriq.read_block(mm, b * pipe.device_block, pipe.device_block))
+            torch.cuda.synchronize()
+            feed_ms = (time.perf_counter() - t0) / SERVER_BLOCKS * 1e3
+            del mm
+    finally:
+        session.shutdown()
+        srv.shutdown()
+        srv.server_close()
+    equal = np.array_equal(runs["streaming"]["pcm"], runs["preload"]["pcm"])
+    check(equal, "preload audio differs from streaming audio")
+    print(f"phase 7 server: preload audio equals streaming audio bit for bit ({equal}); "
+          f"streaming {runs['streaming']['ms_per_block']:.3f} ms/block (RTF "
+          f"{runs['streaming']['rtf']:.2f}), preload without per-block H2D "
+          f"{runs['preload']['ms_per_block']:.3f} ms/block (RTF {runs['preload']['rtf']:.2f}); "
+          f"the streaming feed alone (memmap read, copy, pin, H2D; synchronized) "
+          f"{feed_ms:.3f} ms/block [{tag}]", flush=True)
+    return {name: r["launches"] for name, r in runs.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -658,10 +797,11 @@ def main() -> int:
 
     k1 = phase_k1(dev, tag)
     tc = phase_k1_tc(dev, tag)
-    launches = phase_product(pipe, tag)
+    launches, product_blocks = phase_product(pipe, tag)
     phase_cli(tag)
     tc_launches = phase_bank(dev, tag)
     phase_receivers(dev, tag)
+    server_launches = phase_server(pipe, product_blocks, tag)
 
     print(tag, flush=True)
     print(json.dumps({"kernels": [{
@@ -678,6 +818,7 @@ def main() -> int:
         "library_ms": k1["library_ms"],
         "gear_block_ms": tc["k1_ms"],
         "forms": k1["forms"],
+        "server_launches": server_launches,
     }, {
         "name": "flat_decimate_tc",
         "route": "cuda",

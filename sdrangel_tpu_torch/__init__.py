@@ -12,3 +12,5 @@ imports jax, nor the JAX package: the few numpy helpers it shares with it
 (half-band tables, FFT windows, the test source, WAV and .sdriq I/O) are
 copied here and held equal to the originals by the tests.
 """
+
+__version__ = "0.1.0"

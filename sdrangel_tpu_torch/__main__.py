@@ -1,4 +1,4 @@
-"""CLI — headless Rx pipeline runner on a chosen torch device.
+"""CLI — headless Rx pipeline runner and REST server on a chosen torch device.
 
 Examples:
   # the product path on the card: 10 MS/s i16, ÷64, NFM at +20 kHz
@@ -12,6 +12,9 @@ Examples:
 
   # inspect a capture
   python -m sdrangel_tpu_torch info --in capture.sdriq
+
+  # the REST control plane (the sdrangelsrv role) on the card
+  python -m sdrangel_tpu_torch server --device cuda --api-port 8091
 """
 
 from __future__ import annotations
@@ -129,6 +132,19 @@ def cmd_demod(args) -> int:
     return 0
 
 
+def cmd_server(args) -> int:
+    import logging
+
+    from .api.server import serve_forever
+
+    logging.basicConfig(level=logging.INFO)
+    try:
+        serve_forever(args.api_address, args.api_port, args.api_token, args.device)
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="sdrangel_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -154,6 +170,18 @@ def main(argv=None) -> int:
     pd.add_argument("--iq-correction", action="store_true")
     pd.add_argument("--out", required=True, help="output WAV path")
     pd.set_defaults(fn=cmd_demod)
+
+    ps = sub.add_parser("server", help="run the REST API server (sdrangelsrv role)")
+    ps.add_argument("--api-address", default="127.0.0.1")
+    ps.add_argument("--api-port", type=int, default=8091,
+                    help="listening port (mainparser.cpp default); 0 takes a free one")
+    ps.add_argument("--api-token", default=None,
+                    help="require 'Authorization: Bearer <token>' on every request "
+                         "(or set SDRANGEL_TPU_API_TOKEN)")
+    ps.add_argument("--device", default="cuda",
+                    help="torch device the device sets run on: cuda (the default), "
+                         "cuda:N or cpu")
+    ps.set_defaults(fn=cmd_server)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -106,3 +106,19 @@ def power_spectrum(
     else:
         v = torch.cat([v[..., half:], v[..., :half]], dim=-1)
     return new_state, v
+
+
+def histogram_decay(hist: np.ndarray, spectrum_db: np.ndarray, lo_db: float = -100.0,
+                    hi_db: float = 0.0, decay: int = 1, stroke: int = 30) -> np.ndarray:
+    """The GLSpectrum histogram, headless (glspectrum.h:135-174): hist is a
+    (power bins, fft_size) uint8 intensity grid; each new display spectrum
+    strokes the cell its dB value falls into, every cell decays toward zero,
+    and bins below the floor do not stroke. numpy on the host: the session
+    calls it once per published block on display-sized data."""
+    n_bins = hist.shape[0]
+    in_range = spectrum_db >= lo_db
+    idx = np.clip(((spectrum_db - lo_db) * (n_bins / (hi_db - lo_db))).astype(np.int32),
+                  0, n_bins - 1)
+    h = hist.astype(np.int32) - decay
+    h[idx[in_range], np.arange(len(idx))[in_range]] += stroke
+    return np.clip(h, 0, 255).astype(np.uint8)

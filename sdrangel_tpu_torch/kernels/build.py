@@ -3,9 +3,12 @@
 Every `kernels/csrc/*.cu` is compiled by `nvcc` for Hopper (`sm_90a`) into one
 shared library with a plain C interface, loaded with ctypes. The library goes
 to `kernels/_build/` (git-ignored) under a name keyed on a hash of the
-sources and flags; it is built at first use, to a temporary file that is then
-renamed, so concurrent processes never load a half-written library. Nothing
-is fetched: the build needs only the checkout and the CUDA toolkit.
+sources and flags; it is built at first use, to a temporary file named for
+the process and the thread that is then renamed, so concurrent processes
+never load a half-written library. Within a process one lock holds `build()`
+and `library()`: device sets that start at once in one server run nvcc once
+and share one loaded library. Nothing is fetched: the build needs only the
+checkout and the CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -58,10 +62,24 @@ def _library_path() -> str:
     return os.path.join(BUILD_DIR, f"libsdr_kernels_{h.hexdigest()[:16]}.so")
 
 
-@functools.lru_cache(maxsize=None)
+_LOCK = threading.RLock()  # library() builds under it
+
+
 def build() -> BuildInfo:
     """Compile the kernels unless this source hash is already built. The
     report of the build that made the library is kept beside it."""
+    with _LOCK:
+        return _build()
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library with every entry point's signature set."""
+    with _LOCK:
+        return _library()
+
+
+@functools.lru_cache(maxsize=None)
+def _build() -> BuildInfo:
     so = _library_path()
     log = so + ".log"
     if os.path.exists(so):
@@ -71,7 +89,8 @@ def build() -> BuildInfo:
                 seconds, _, ptxas = f.read().partition("\n")
         return BuildInfo(so, float(seconds), ptxas)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    tmp = f"{so}.{tag}.tmp"
     t0 = time.perf_counter()
     proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
@@ -80,16 +99,15 @@ def build() -> BuildInfo:
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    with open(f"{log}.{os.getpid()}.tmp", "w") as f:
+    with open(f"{log}.{tag}.tmp", "w") as f:
         f.write(f"{seconds}\n{proc.stderr}")
-    os.replace(f"{log}.{os.getpid()}.tmp", log)
+    os.replace(f"{log}.{tag}.tmp", log)
     os.replace(tmp, so)
     return BuildInfo(so, seconds, proc.stderr)
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library with every entry point's signature set."""
+def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build().path)
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.sdr_flat_decimate.restype = i32

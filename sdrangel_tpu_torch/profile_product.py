@@ -42,7 +42,7 @@ from .dsp import scope as dsp_scope
 from .dsp import spectrum as dsp_spectrum
 from .io import testsource
 from .parallel import sharded
-from .runtime.engine import ChannelSpec, DeviceConfig, RxPipeline, _to_host
+from .runtime.engine import ChannelSpec, DeviceConfig, RxPipeline
 
 RATE = 10e6
 NFM = sharded.NFM_URI
@@ -121,8 +121,8 @@ def layer_split(pipe: RxPipeline, blocks: list[np.ndarray]) -> dict[str, float]:
             dsp_spectrum.power_spectrum(state["spectrum"], bb, pipe.spectrum_cfg),
             dsp_scope.project(bb[:1024], dsp_scope.Projection.MAG_DB)))
         add("spectrum + scope taps", ms)
-        (state, outs), _ = _timed(lambda: pipe.step(state, raw))
-        _, ms = _timed(lambda: _to_host(outs))
+        (state, flat), _ = _timed(lambda: pipe.step_packed(state, raw))
+        _, ms = _timed(lambda: pipe.to_host(flat))
         add("fetch outputs", ms)
     return totals
 

@@ -5,7 +5,9 @@ normalize + DC/IQ correction), the ÷2^k device decimation on K1, then for
 each channel the channelizer cascade and the demodulator, plus the spectrum
 and scope taps of the baseband. Everything runs on the pipeline's
 `torch.device`; on the card the ops queue asynchronously, and `run` reads
-block N back while block N+1 is already queued.
+block N back while block N+1 is already queued. A block's outputs leave the
+device packed into one float32 vector (`step_packed`), so reading them back
+is one copy (`fetch`), however many channels and meters the block holds.
 """
 
 from __future__ import annotations
@@ -248,6 +250,20 @@ class RxPipeline:
         }
         return new_state, {"channels": outs, "spectrum": bb_spectrum, "scope": scope}
 
+    # -- packed outputs ------------------------------------------------------
+
+    def step_packed(self, state: dict, raw: torch.Tensor, dyn: list[dict] | None = None):
+        """`step` with the outputs tree packed into one float32 vector on the
+        pipeline's device (see `pack_outs`); its layout is `out_layout`."""
+        state, outs = self.step(state, raw, dyn)
+        flat, layout = pack_outs(outs)
+        self.out_layout = layout
+        return state, flat
+
+    def to_host(self, flat: torch.Tensor) -> dict:
+        """One packed block's outputs as numpy: one device-to-host copy."""
+        return unpack_outs(fetch(flat), self.out_layout)
+
     # -- host loop -----------------------------------------------------------
 
     def upload(self, raw: np.ndarray) -> torch.Tensor:
@@ -267,25 +283,108 @@ class RxPipeline:
         state = self.init_state() if state is None else state
         pending = []
         for b in range(n_blocks):
-            state, outs = self.step(state, self.upload(iq_source(b, self.device_block)))
-            pending.append((b, outs))
+            state, flat = self.step_packed(state, self.upload(iq_source(b, self.device_block)))
+            pending.append((b, flat))
             if len(pending) > 1:
                 idx, prev = pending.pop(0)
-                yield idx, _to_host(prev)
+                yield idx, self.to_host(prev)
         for idx, prev in pending:
-            yield idx, _to_host(prev)
+            yield idx, self.to_host(prev)
         self.final_state = state
 
 
-def _to_host(outs: dict) -> dict:
-    return {
-        "channels": [
-            {"power": float(o["power"]), "audio": o["audio"].cpu().numpy()}
-            for o in outs["channels"]
-        ],
-        "spectrum": outs["spectrum"].cpu().numpy(),
-        "scope": outs["scope"].cpu().numpy(),
-    }
+# -- packed outputs -----------------------------------------------------------
+#
+# Float32 leaves travel as they are and booleans as 0/1. Integer leaves travel
+# as their bits: int8/16/32 widened to int32, int64 as two words, each viewed
+# as float32, so every value comes back exactly; the JAX engine's unpack_outs
+# rounds integer leaves through float32 and loses values above 2^24.
+
+
+@dataclasses.dataclass(frozen=True)
+class OutLayout:
+    skeleton: Any  # the outputs tree with each leaf replaced by its index
+    leaves: tuple  # per leaf: (shape, torch dtype, float32 words)
+
+    @property
+    def size(self) -> int:
+        return sum(words for _, _, words in self.leaves)
+
+
+def _pack_leaf(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.float32:
+        return x.reshape(-1)
+    if x.dtype == torch.bool:
+        return x.reshape(-1).to(torch.float32)
+    if x.dtype == torch.int64:
+        return x.reshape(-1).contiguous().view(torch.float32)
+    if x.dtype in (torch.int8, torch.uint8, torch.int16, torch.int32):
+        return x.reshape(-1).to(torch.int32).view(torch.float32)
+    raise TypeError(f"cannot pack an output leaf of {x.dtype}")
+
+
+def pack_outs(outs: Any) -> tuple[torch.Tensor, OutLayout]:
+    """An outputs tree (dicts, lists and tensors on one device) as one flat
+    float32 vector and the layout that `unpack_outs` reads it by."""
+    leaves: list[torch.Tensor] = []
+
+    def skeleton(node):
+        if isinstance(node, dict):
+            return {k: skeleton(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(skeleton(v) for v in node)
+        leaves.append(node)
+        return len(leaves) - 1
+
+    tree = skeleton(outs)
+    words = [_pack_leaf(x) for x in leaves]
+    layout = OutLayout(tree, tuple((tuple(x.shape), x.dtype, w.numel())
+                                   for x, w in zip(leaves, words)))
+    return torch.cat(words), layout
+
+
+def unpack_outs(flat: np.ndarray, layout: OutLayout) -> Any:
+    """The outputs tree back from one packed vector, as numpy arrays."""
+    if flat.shape != (layout.size,):
+        raise ValueError(f"packed vector of {flat.shape}, layout holds {layout.size} words")
+    leaves, pos = [], 0
+    for shape, dtype, words in layout.leaves:
+        w = flat[pos:pos + words]
+        pos += words
+        if dtype == torch.float32:
+            leaf = w
+        elif dtype == torch.bool:
+            leaf = w != 0.0
+        elif dtype == torch.int64:
+            leaf = w.view(np.int64)
+        else:
+            leaf = w.view(np.int32).astype(torch.empty(0, dtype=dtype).numpy().dtype)
+        leaves.append(leaf.reshape(shape))
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return leaves[node]
+
+    return build(layout.skeleton)
+
+
+def fetch(flat: torch.Tensor) -> np.ndarray:
+    """A packed vector on the host. On the card: one non-blocking copy into
+    pinned memory, waited for by an event on the calling thread's current
+    stream — the stream its step was queued on — so a worker thread never
+    waits on another thread's stream."""
+    if flat.device.type != "cuda":
+        return flat.numpy()
+    host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+    with torch.cuda.device(flat.device):
+        host.copy_(flat, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+    done.synchronize()
+    return host.numpy()
 
 
 def _config_field(config_cls: type, settings: dict, name: str):

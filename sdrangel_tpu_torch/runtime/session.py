@@ -1,0 +1,842 @@
+"""Session — the MainCore role (sdrsrv/maincore.{h,cpp}) for Rx device sets.
+
+A Session owns device sets, presets and stored commands, and is driven by
+the REST API (api/server.py). A DeviceSet is one source and its channels; its
+acquisition runs in a worker thread that streams file or synthetic blocks
+through `RxPipeline` on the set's torch device (the DSPDeviceSourceEngine
+thread) and publishes per-channel reports and audio.
+
+Live reconfiguration (webapiadaptersrv.cpp:1637 → nfmdemod.cpp
+applySettings; downchannelizer.cpp:111-189): dynamic knobs (an in-passband
+inputFrequencyOffset, squelch_db, volume) reach the running pipeline every
+block as per-block overrides. Static changes (bandwidths, rates, channels
+added or removed, device settings) bump a generation counter; the worker
+reads back the blocks it has queued, rebuilds the pipeline and goes on from
+the same stream position.
+
+Each block's outputs leave the device as one packed vector; `publish_every`
+blocks are read back with one copy, one block behind the newest queued
+block, as `RxPipeline.run` reads them. Two behaviours differ from the JAX
+session on purpose:
+- at publish_every=1 the JAX worker reads back the block it has just queued
+  (session.py:942-947) and so waits for it; here the read-back stays one
+  block behind;
+- a generation bump with blocks pending makes the JAX worker drop the whole
+  burst (session.py:956, 987-989); here every pending block is published to
+  the channels it was computed for, and only the part of a channel removed
+  since is dropped.
+
+The Rx session on the one-pipeline worker is what the port carries. The Tx
+device set, the sharded worker, the daemon source, UDP/RTP egress, the data
+channels' host decoders and the reference-TLV preset format raise
+NotImplementedError naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+import platform
+import subprocess
+import threading
+import time
+import wave
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from ..channels import registry
+from ..channels.registry import REGISTRY
+from ..dsp import spectrum as dsp_spectrum
+from ..dsp.types import INPUT_FORMATS
+from ..io import sdriq, testsource
+from .engine import ChannelSpec, DeviceConfig, RxPipeline, fetch, resolve_device, unpack_outs
+
+ITEM_SHARDED = ("ROADMAP.md queue 1, item 9 (parallel/ on several GPUs: the sharded "
+                "session worker with K1-TC)")
+ITEM_DAEMON = "ROADMAP.md queue 1, item 11 (daemonsource: io/daemon.py, io/fec.py)"
+ITEM_REFPRESET = "ROADMAP.md queue 1, item 13 (reference presets: runtime/refpreset.py)"
+
+#: the JAX session's device settings of parts not ported yet: name ->
+#: (the JAX default, which changes nothing and passes, ROADMAP item)
+_UNPORTED_SOURCE_FIELDS = {
+    "sharded": (False, ITEM_SHARDED), "mesh_time": (0, ITEM_SHARDED),
+    "mesh_channel": (1, ITEM_SHARDED), "sharded_block": (0, ITEM_SHARDED),
+    "sharded_pfb_m": (0, ITEM_SHARDED), "sharded_pfb_a2a": (False, ITEM_SHARDED),
+    "daemon_address": ("127.0.0.1", ITEM_DAEMON), "daemon_port": (9090, ITEM_DAEMON),
+}
+
+#: available source kinds (the DeviceEnumerator role: software sources only)
+SOURCE_KINDS = {
+    "testsource": "synthetic carrier generator (AM/FM/none + impairments)",
+    "filesource": ".sdriq or raw cu8/cs8/cs16 capture replay (loops at EOF)",
+}
+
+
+@dataclasses.dataclass(eq=False)
+class ChannelState:
+    uri: str
+    frequency_offset: float
+    settings: dict
+    # live report fields (the channel report endpoint)
+    channel_power_db: float = -120.0
+    audio_sample_rate: int = 48000
+    squelch: bool = False
+    audio_samples: int = 0
+    # published audio blocks not yet drained (the AudioFifo role)
+    audio: list = dataclasses.field(default_factory=list, repr=False)
+
+
+@dataclasses.dataclass
+class SourceSettings:
+    """File or synthetic front end (filesource/testsource settings)."""
+
+    kind: str = "testsource"  # testsource | filesource
+    file_path: str = ""
+    # filesource container: "sdriq" (16/24-bit) or a raw headerless capture
+    # ("cu8" rtl_sdr, "cs8" hackrf, "cs16"); "auto" picks sdriq for .sdriq,
+    # else the extension. Raw captures take rate and centre from here.
+    file_format: str = "auto"
+    # upload the whole capture to the device once at start (bounded by
+    # file_preload_max_mb): playback then slices it on the device, with no
+    # per-block host-to-device copy
+    file_preload: bool = False
+    file_preload_max_mb: int = 2048
+    sample_rate: float = 768000.0
+    center_frequency: float = 0.0
+    log2_decim: int = 0
+    fc_pos: str = "cen"
+    dc_correction: bool = False
+    iq_correction: bool = False
+    throttle: bool = False  # pace blocks in real time
+    # testsource
+    modulation: str = "fm"
+    carrier_freq: float = 0.0
+    tone_freq: float = 1000.0
+    amplitude: float = 0.5
+    # spectrum tap (SpectrumVis config: spectrumvis.cpp:77-200)
+    spectrum_fft_size: int = 1024
+    spectrum_averaging: str = "moving"  # none | moving | fixed
+    spectrum_averaging_n: int = 8
+    spectrum_overlap: int = 0
+    # non-empty: the device stream is recorded to this .sdriq (FileRecord)
+    record_file: str = ""
+    # > 0: acquisition ends itself after this many blocks (play once)
+    run_blocks: int = 0
+    # blocks read back together, one copy per burst
+    publish_every: int = 1
+
+
+_FIELD_TYPES = {"str": str, "float": float, "int": int, "bool": bool}
+
+
+def coerce_settings(target, settings: dict) -> dict:
+    """Type-check and coerce a JSON settings dict against a dataclass
+    instance: {field: value}; ValueError on an unknown field or a wrong type
+    (the API's 400, as the reference's typed DTOs reject them at parse)."""
+    fields = {f.name: f for f in dataclasses.fields(target)}
+    out = {}
+    for k, v in settings.items():
+        f = fields.get(k)
+        if f is None:
+            raise ValueError(f"unknown device setting {k!r}; allowed: {sorted(fields)}")
+        want = _FIELD_TYPES.get(f.type if isinstance(f.type, str) else f.type.__name__)
+        if want is bool:
+            if not isinstance(v, bool):
+                raise ValueError(f"{k} must be a boolean, got {v!r}")
+        elif want is float:
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                raise ValueError(f"{k} must be a number, got {v!r}")
+            v = float(v)
+        elif want is int:
+            if isinstance(v, bool) or not isinstance(v, int):
+                raise ValueError(f"{k} must be an integer, got {v!r}")
+        elif want is str and not isinstance(v, str):
+            raise ValueError(f"{k} must be a string, got {v!r}")
+        out[k] = v
+    return out
+
+
+def check_source(settings: dict) -> dict:
+    """The device settings without the JAX session's fields of parts not
+    ported yet, which must hold their inert defaults: another value, or the
+    daemon source, raises NotImplementedError naming the ROADMAP item."""
+    if settings.get("kind") == "daemonsource":
+        raise NotImplementedError(f"the daemon source is not ported yet: {ITEM_DAEMON}")
+    if settings.get("kind", "testsource") not in SOURCE_KINDS:
+        raise ValueError(f"unknown source kind {settings['kind']!r}; "
+                         f"available: {sorted(SOURCE_KINDS)}")
+    for k, (default, item) in _UNPORTED_SOURCE_FIELDS.items():
+        if k in settings and settings[k] != default:
+            raise NotImplementedError(f"device setting {k}={settings[k]!r} is not ported "
+                                      f"yet: {item}")
+    return {k: v for k, v in settings.items() if k not in _UNPORTED_SOURCE_FIELDS}
+
+
+class DeviceSet:
+    """One source and its channels (sdrsrv/device/deviceset.h:31-53), run on
+    one torch device — the card unless the caller asks for the CPU. A
+    channel setting `audioFile` streams its audio to a WAV file while the
+    set runs."""
+
+    direction = "rx"
+
+    def __init__(self, index: int, device: torch.device | str = "cuda"):
+        self.index = index
+        self.device = resolve_device(device)
+        self.source = SourceSettings()
+        self.channels: list[ChannelState] = []
+        self.running = False
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self.audio_keep_blocks = 64
+        self.blocks_processed = 0
+        self.error = ""
+        # settings generation: static changes bump it, and the worker
+        # rebuilds the pipeline between blocks when it moves
+        self._gen = 0
+        # the wall seconds from the run's first queued block to its latest
+        # publish (host clock), and the seconds of signal published over them
+        self.elapsed_s = 0.0
+        self.realtime_factor = 0.0
+        self.spectrum: np.ndarray | None = None  # latest baseband spectrum (dB)
+        self.scope: np.ndarray | None = None  # latest scope traces (3, 1024)
+        # display history (GLSpectrum waterfall and decayed histogram)
+        self.waterfall: list[np.ndarray] = []
+        self.waterfall_keep = 64
+        self.histogram: np.ndarray | None = None  # (100, fft_size) uint8
+
+    # -- configuration -------------------------------------------------------
+
+    def add_channel(self, uri: str, settings: dict | None = None) -> int:
+        settings = dict(settings or {})
+        registry.validate_settings(uri, settings)
+        offset = float(settings.pop("inputFrequencyOffset", 0.0))
+        with self._lock:
+            self.channels.append(ChannelState(uri, offset, settings))
+            self._gen += 1
+            return len(self.channels) - 1
+
+    def remove_channel(self, index: int) -> None:
+        with self._lock:
+            del self.channels[index]
+            self._gen += 1
+
+    #: channel settings whose live changes reach the pipeline per block,
+    #: where the kind takes them as per-block overrides
+    _DYN_SETTINGS = frozenset({"squelch_db", "volume"})
+
+    def update_channel(self, index: int, settings: dict) -> None:
+        """Apply channel settings; a running pipeline takes them at the next
+        block boundary (nfmdemod.cpp handleMessage/applySettings)."""
+        with self._lock:
+            ch = self.channels[index]
+            registry.validate_settings(ch.uri, settings)
+            dyn_fields = REGISTRY[ch.uri].dynamic_fields
+            static_change = False
+            if "inputFrequencyOffset" in settings:
+                new_off = float(settings.pop("inputFrequencyOffset"))
+                if new_off != ch.frequency_offset and "offset_hz" not in dyn_fields:
+                    static_change = True
+                # an in-passband retune rides the NCO; the worker bumps the
+                # generation itself when the offset leaves the passband
+                ch.frequency_offset = new_off
+            for k, v in settings.items():
+                if ch.settings.get(k) != v and k not in self._DYN_SETTINGS & dyn_fields:
+                    static_change = True
+            ch.settings.update(settings)
+            if static_change:
+                self._gen += 1
+
+    def update_source(self, settings: dict) -> None:
+        """Typed device-settings update (a wrong type is the API's 400)."""
+        coerced = coerce_settings(self.source, check_source(settings))
+        with self._lock:
+            changed = False
+            for k, v in coerced.items():
+                if getattr(self.source, k) != v:
+                    setattr(self.source, k, v)
+                    changed = True
+            if changed:
+                self._gen += 1
+
+    # -- acquisition ---------------------------------------------------------
+
+    def start(self) -> None:
+        if self.running:
+            return
+        if self._thread is not None:
+            # a worker that outlived stop()'s wait (e.g. inside the first
+            # kernel build) ends at its next block boundary: wait for it
+            self._thread.join()
+        self._stop.clear()
+        self.error = ""
+        self.elapsed_s = self.realtime_factor = 0.0
+        # running flips before the thread starts, so a worker that fails at
+        # once leaves it False (its finally runs after this line)
+        self.running = True
+        self._thread = threading.Thread(target=self._work, daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            # a first block on a fresh machine includes the kernel build
+            self._thread.join(timeout=60.0)
+            if self._thread.is_alive():
+                return  # still finishing a block; its finally clears running
+            self._thread = None
+        self.running = False
+
+    def _build_pipeline(self) -> tuple[RxPipeline, Callable[[int], Callable]]:
+        """The pipeline for the current settings and a function that opens
+        its block reader for a device block (caller holds the lock; the
+        reader is opened outside it: a preload uploads the whole capture).
+        A reader maps (stream position, count) to a raw (count, 2) block,
+        numpy on the host or a tensor on the pipeline's device."""
+        src = self.source
+        input_format = "i16"
+        fmt = src.file_format
+        if fmt == "auto" and src.file_path:
+            fmt = ("sdriq" if src.file_path.lower().endswith(".sdriq")
+                   else src.file_path.rsplit(".", 1)[-1].lower())
+        raw_file = src.kind == "filesource" and fmt in sdriq.RAW_FORMATS
+        if raw_file:
+            input_format = sdriq.RAW_FORMATS[fmt][1]
+        elif src.kind == "filesource":
+            # the capture header is authoritative for rate, centre and width
+            # (the reference reads it in filesourcethread.cpp)
+            info = sdriq.read_header(src.file_path)
+            src.sample_rate = float(info.sample_rate)
+            if info.center_frequency:
+                src.center_frequency = float(info.center_frequency)
+            if info.sample_size == 24:
+                input_format = "i24"  # int32 container, 2^23 scale
+        frontend = DeviceConfig(
+            sample_rate=src.sample_rate, center_frequency=src.center_frequency,
+            log2_decim=src.log2_decim, fc_pos=src.fc_pos, dc_correction=src.dc_correction,
+            iq_correction=src.iq_correction, input_format=input_format,
+        )
+        specs = []
+        for ch in self.channels:
+            st = {k: v for k, v in ch.settings.items() if k not in registry.SESSION_KEYS}
+            specs.append(ChannelSpec(ch.uri, ch.frequency_offset, st))
+        pipe = RxPipeline(
+            frontend, specs, self.device, block_size=1 << 16,
+            spectrum_cfg=dsp_spectrum.SpectrumConfig(
+                fft_size=int(src.spectrum_fft_size), averaging_mode=src.spectrum_averaging,
+                averaging_n=int(src.spectrum_averaging_n), overlap=int(src.spectrum_overlap)),
+        )
+        if src.kind == "filesource":
+            mm = sdriq.open_raw(src.file_path, fmt) if raw_file else sdriq.open_mmap(src.file_path)[1]
+            return pipe, self._file_reader(mm)
+        cfg = testsource.TestSourceConfig(
+            sample_rate=src.sample_rate, carrier_freq=src.carrier_freq,
+            modulation=src.modulation, tone_freq=src.tone_freq, amplitude=src.amplitude,
+        )
+        return pipe, lambda block: (
+            lambda pos, count: testsource.to_iq_int16(
+                testsource.generate(cfg, count, start_sample=pos)))
+
+    def _file_reader(self, mm: np.ndarray) -> Callable[[int], Callable]:
+        """Playback over an (N, 2) host capture. With file_preload the whole
+        capture, extended by one block so no read straddles the end, becomes
+        one tensor on the device, and each block is a slice of it."""
+        src = self.source
+        if not src.file_preload:
+            return lambda block: (lambda pos, count: sdriq.read_block(mm, pos, count))
+        mb = mm.nbytes / 1e6
+        if mb > src.file_preload_max_mb:
+            raise ValueError(f"file_preload: capture is {mb:.0f} MB > "
+                             f"file_preload_max_mb={src.file_preload_max_mb}")
+        device = self.device
+
+        def open_reader(block: int):
+            n = mm.shape[0]
+            head = sdriq.read_block(mm, 0, block)
+            capture = torch.from_numpy(np.concatenate([mm, head])).to(device)
+            return lambda pos, count: capture[pos % n:pos % n + count]
+
+        return open_reader
+
+    def _sync_sinks(self, wav_writers: dict) -> None:
+        """Reconcile the WAV egress with the channels' `audioFile` settings
+        (caller holds the lock; keyed by channel identity, so an unrelated
+        settings change never truncates a live file)."""
+        live = {id(ch): ch for ch in self.channels}
+        for cid in list(wav_writers):
+            path, w = wav_writers[cid]
+            ch = live.get(cid)
+            if ch is None or ch.settings.get("audioFile") != path:
+                w.close()
+                del wav_writers[cid]
+        for ch in self.channels:
+            path = ch.settings.get("audioFile")
+            if path and id(ch) not in wav_writers:
+                w = wave.open(path, "wb")
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(48000)
+                wav_writers[id(ch)] = (path, w)
+
+    def _live_dyn(self, pipe: RxPipeline) -> tuple[list, bool]:
+        """Per-channel overrides from the live settings (caller holds the
+        lock), and whether a retune left its channelizer passband, which the
+        NCO cannot absorb (downchannelizer.cpp applyConfiguration)."""
+        dyn, rebuild = [], False
+        for i, ch in enumerate(self.channels):
+            kind, cfg = pipe.kinds[i], pipe.demod_cfgs[i]
+            d = {}
+            if "offset_hz" in kind.dynamic_fields:
+                delta = ch.frequency_offset - pipe.channel_specs[i].frequency_offset
+                if abs(delta) > 0.25 * pipe.plans[i].channel_rate:
+                    rebuild = True
+                d["offset_hz"] = float(cfg.input_offset + delta)
+            if "squelch_db" in kind.dynamic_fields:
+                d["squelch_db"] = float(ch.settings.get("squelch_db", cfg.squelch_db))
+            if "volume" in kind.dynamic_fields:
+                d["volume"] = float(ch.settings.get("volume", cfg.volume))
+            dyn.append(d)
+        return dyn, rebuild
+
+    def _work(self) -> None:
+        try:
+            self._work_regular()
+        finally:
+            self.running = False
+
+    def _work_regular(self) -> None:
+        """The engine thread: gotoRunning → block loop → gotoIdle
+        (dspdevicesourceengine.cpp:325-408). The outer loop is a settings
+        generation: a static change ends the block loop, the pending blocks
+        are published, and the pipeline is rebuilt at the same position."""
+        wav_writers: dict = {}
+        recorder = None  # ((path, rate, centre), SdriqWriter)
+        pos = 0  # device-rate sample position, kept across rebuilds
+        t_start = None  # the run's first queued block (host clock)
+        signal_s = 0.0  # seconds of signal published in this run
+        try:
+            while not self._stop.is_set():
+                with self._lock:
+                    gen = self._gen
+                    pipe, open_reader = self._build_pipeline()
+                    chans = list(self.channels)  # the pipeline's channels, in its order
+                    self._sync_sinks(wav_writers)
+                    rec_cfg = (self.source.record_file, int(self.source.sample_rate),
+                               int(self.source.center_frequency))
+                    pub_n = max(1, int(self.source.publish_every))
+                    run_blocks, throttle = self.source.run_blocks, self.source.throttle
+                reader = open_reader(pipe.device_block)
+                if recorder is not None and rec_cfg != recorder[0]:
+                    recorder[1].close()
+                    recorder = None
+                if recorder is None and rec_cfg[0]:
+                    recorder = (rec_cfg, sdriq.SdriqWriter(
+                        rec_cfg[0], sample_rate=rec_cfg[1], center_frequency=rec_cfg[2],
+                        sample_size=24 if pipe.frontend.input_format == "i24" else 16))
+                state = pipe.init_state()
+                block_seconds = pipe.device_block / pipe.frontend.sample_rate
+                pending: list[torch.Tensor] = []  # packed blocks queued, oldest first
+
+                def flush(blocks: list[torch.Tensor]) -> None:
+                    """Read `blocks` back with one copy and publish them to
+                    the channels they were computed for."""
+                    nonlocal signal_s
+                    flat = fetch(blocks[0] if len(blocks) == 1 else torch.cat(blocks))
+                    size = pipe.out_layout.size
+                    for k in range(len(blocks)):
+                        self._publish_block(
+                            unpack_outs(flat[k * size:(k + 1) * size], pipe.out_layout),
+                            chans, wav_writers)
+                    signal_s += len(blocks) * block_seconds
+                    self.elapsed_s = time.perf_counter() - t_start
+                    self.realtime_factor = signal_s / max(self.elapsed_s, 1e-9)
+
+                while not self._stop.is_set():
+                    if run_blocks and self.blocks_processed + len(pending) >= run_blocks:
+                        self._stop.set()  # play once: done
+                        break
+                    with self._lock:
+                        if self._gen != gen:
+                            break  # a static change: rebuild between blocks
+                        dyn, rebuild = self._live_dyn(pipe)
+                        if rebuild:
+                            self._gen += 1
+                            continue
+                    t0 = time.perf_counter()
+                    t_start = t0 if t_start is None else t_start
+                    raw = reader(pos, pipe.device_block)
+                    if recorder is not None:
+                        recorder[1].write(_to_i16_record(raw, pipe.frontend.input_format))
+                    if isinstance(raw, np.ndarray):
+                        raw = pipe.upload(raw)
+                    state, flat = pipe.step_packed(state, raw, dyn)
+                    pending.append(flat)
+                    pos += pipe.device_block
+                    # read a burst back once the block after it is queued,
+                    # so the device never idles on the read-back
+                    if len(pending) > pub_n:
+                        flush(pending[:pub_n])
+                        del pending[:pub_n]
+                    dt = time.perf_counter() - t0
+                    if throttle and dt < block_seconds:
+                        time.sleep(block_seconds - dt)
+                if pending:
+                    flush(pending)  # before the rebuild or the stop
+        except Exception as e:  # StError (dspdevicesourceengine.h:28)
+            self.error = f"{type(e).__name__}: {e}"
+        finally:
+            for _, w in wav_writers.values():
+                w.close()
+            if recorder is not None:
+                recorder[1].close()
+
+    def _publish_block(self, outs: dict, chans: list[ChannelState], wav_writers: dict) -> None:
+        """One block's host outputs into the reports, the audio buffers and
+        the WAV egress. `chans` are the channels the block was computed for;
+        a channel removed since then gets nothing (its audio is dropped),
+        every other channel gets its part whatever changed meanwhile."""
+        with self._lock:
+            self.spectrum = outs["spectrum"]
+            self.scope = outs["scope"]
+            if self.histogram is None or self.histogram.shape[1] != len(self.spectrum):
+                # (re)size with the spectrum tap's fft size
+                self.histogram = np.zeros((100, len(self.spectrum)), np.uint8)
+                self.waterfall.clear()
+            self.waterfall.append(self.spectrum)
+            del self.waterfall[:-self.waterfall_keep]
+            self.histogram = dsp_spectrum.histogram_decay(self.histogram, self.spectrum)
+            live = {id(ch) for ch in self.channels}
+            for ch, out in zip(chans, outs["channels"]):
+                if id(ch) not in live:
+                    continue
+                ch.channel_power_db = float(10.0 * np.log10(max(float(out["power"]), 1e-12)))
+                audio = out["audio"]
+                # the demod's own gate state where it has one (nfmdemod.h getters)
+                ch.squelch = (bool(out["squelch"]) if "squelch" in out
+                              else bool(np.abs(audio).max() > 1e-4))
+                ch.audio_samples += audio.shape[0]
+                ch.audio.append(audio)
+                del ch.audio[:-self.audio_keep_blocks]
+                entry = wav_writers.get(id(ch))
+                if entry is not None:
+                    mono = audio if audio.ndim == 1 else audio[:, 0]
+                    entry[1].writeframes(
+                        np.clip(mono * 32768.0, -32768, 32767).astype(np.int16).tobytes())
+            self.blocks_processed += 1
+
+    def drain_audio(self, channel: int) -> np.ndarray:
+        with self._lock:
+            ch = self.channels[channel]
+            parts, ch.audio = ch.audio, []
+        if not parts:
+            return np.zeros(0, dtype=np.float32)
+        return np.concatenate(parts, axis=0)
+
+
+def _to_i16_record(raw, input_format: str) -> np.ndarray:
+    """A raw block as the .sdriq recorder writes it: host int16 (int32 for
+    24-bit); an 8-bit capture is rescaled to 16 bits."""
+    rec = raw.cpu().numpy() if isinstance(raw, torch.Tensor) else np.asarray(raw)
+    if rec.dtype in (np.int16, np.int32):
+        return rec
+    _, off, scale = INPUT_FORMATS[input_format]
+    return np.clip((rec.astype(np.float32) - off) * (32768.0 / scale),
+                   -32768, 32767).astype(np.int16)
+
+
+#: the preset document's schema: 1 had no "schema" key; 2 stamps it, and
+#: settings are sanitized against the current dataclasses on load
+PRESET_SCHEMA_VERSION = 2
+
+
+def _known_fields(cls, d: dict) -> dict:
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: v for k, v in d.items() if k in names}
+
+
+def _migrate_v1_to_v2(preset: dict) -> dict:
+    """v1 → v2: stamp the version, default the missing structure."""
+    preset = dict(preset)
+    preset["schema"] = 2
+    sets = []
+    for entry in preset.get("deviceSets", []):
+        entry = dict(entry)
+        entry.setdefault("direction", "rx")
+        entry["channels"] = [
+            {"uri": ch["uri"], "inputFrequencyOffset": ch.get("inputFrequencyOffset", 0.0),
+             "settings": ch.get("settings", {})}
+            for ch in entry.get("channels", [])
+        ]
+        sets.append(entry)
+    preset["deviceSets"] = sets
+    return preset
+
+
+#: migration chain: schema N -> function producing schema N+1
+PRESET_MIGRATIONS = {1: _migrate_v1_to_v2}
+
+
+def migrate_preset(preset: dict) -> dict:
+    """A preset document at PRESET_SCHEMA_VERSION (unchanged when current;
+    raises on a document newer than this build)."""
+    version = int(preset.get("schema", 1))
+    if version > PRESET_SCHEMA_VERSION:
+        raise ValueError(f"preset schema {version} is newer than this build's "
+                         f"{PRESET_SCHEMA_VERSION}; upgrade to load it")
+    while version < PRESET_SCHEMA_VERSION:
+        preset = PRESET_MIGRATIONS[version](preset)
+        version = int(preset["schema"])
+    return preset
+
+
+class Session:
+    """MainCore: the device sets, the presets (a JSON store, where the
+    reference keeps Base64-TLV blobs in QSettings) and the stored commands.
+    Every device set runs on the session's torch device: the card unless the
+    caller asks for the CPU."""
+
+    def __init__(self, preset_path: str | None = None, preset_dir: str | None = None,
+                 device: torch.device | str = "cuda"):
+        self.device = resolve_device(device)
+        self.device_sets: list[DeviceSet] = []
+        self.presets: dict[str, dict] = {}
+        self.commands: dict[str, dict] = {}
+        self.start_time = time.time()
+        self.preset_path = preset_path
+        # preset file import/export confinement (see _preset_file_path)
+        self.preset_dir = preset_dir or os.environ.get(
+            "SDRANGEL_TPU_PRESET_DIR",
+            os.path.dirname(os.path.abspath(preset_path)) if preset_path
+            else os.path.join(os.path.expanduser("~"), ".sdrangel_tpu", "presets"))
+        if preset_path and os.path.exists(preset_path):
+            with open(preset_path) as f:
+                raw = json.load(f)
+            # an entry this build cannot read (saved by a newer one) is kept
+            # verbatim, so the next persist keeps it; loading it raises
+            for k, v in raw.items():
+                try:
+                    self.presets[k] = migrate_preset(v)
+                except Exception:
+                    self.presets[k] = v
+
+    def _persist_presets(self) -> None:
+        if self.preset_path:
+            with open(self.preset_path, "w") as f:
+                json.dump(self.presets, f, indent=1)
+
+    def add_device_set(self, direction: str = "rx") -> DeviceSet:
+        if direction == "tx":
+            raise NotImplementedError(f"Tx device sets are not ported yet: {registry.ITEM_TX}")
+        if direction != "rx":
+            raise ValueError(f"direction must be rx or tx, got {direction!r}")
+        ds = DeviceSet(len(self.device_sets), self.device)
+        self.device_sets.append(ds)
+        return ds
+
+    def remove_last_device_set(self) -> None:
+        if self.device_sets:
+            self.device_sets.pop().stop()
+
+    def shutdown(self) -> None:
+        """Stop every device set (MainCore::MsgDeleteInstance role,
+        webapiadaptersrv.cpp:104-115)."""
+        for ds in self.device_sets:
+            ds.stop()
+
+    # -- commands (sdrbase/commands/command.h:30-70) ---------------------------
+
+    def set_command(self, name: str, command: str, args: str = "") -> None:
+        self.commands[name] = {"command": command, "args": args}
+
+    def delete_command(self, name: str) -> None:
+        del self.commands[name]
+
+    def run_command(self, name: str, api_port: int = 8091) -> dict:
+        """Run a stored command; %1 in its arguments becomes the API address."""
+        entry = self.commands[name]
+        args = entry["args"].replace("%1", f"127.0.0.1:{api_port}")
+        cmd = f"{entry['command']} {args}".strip()
+        proc = subprocess.run(cmd, shell=True, capture_output=True, text=True, timeout=30.0)
+        return {"name": name, "command": cmd, "returncode": proc.returncode,
+                "stdout": proc.stdout[-4096:], "stderr": proc.stderr[-4096:]}
+
+    def summary(self) -> dict:
+        """instanceSummary (webapiadaptersrv.cpp:71-103): torch and the
+        device stand where the reference names Qt."""
+        from .. import __version__
+
+        root = logging.getLogger()
+        return {
+            "appname": "sdrangel_tpu_torch",
+            "version": __version__,
+            "torchVersion": torch.__version__,
+            "device": (torch.cuda.get_device_name(self.device) if self.device.type == "cuda"
+                       else "cpu"),
+            "architecture": platform.machine(),
+            "os": f"{platform.system()} {platform.release()}",
+            "dspRxBits": 16,
+            "dspTxBits": 16,
+            "pid": os.getpid(),
+            "uptime_s": round(time.time() - self.start_time, 1),
+            "logging": {
+                "consoleLevel": logging.getLevelName(root.level),
+                "fileName": next((h.baseFilename for h in root.handlers
+                                  if isinstance(h, logging.FileHandler)), ""),
+            },
+            "devicesetlist": {
+                "devicesetcount": len(self.device_sets),
+                "deviceSets": [self._device_set_summary(ds) for ds in self.device_sets],
+            },
+        }
+
+    @staticmethod
+    def _device_set_summary(ds: DeviceSet) -> dict:
+        return {
+            "index": ds.index,
+            "state": "error" if ds.error else ("running" if ds.running else "idle"),
+            "error": ds.error,
+            "realtimeFactor": round(ds.realtime_factor, 2),
+            "direction": ds.direction,
+            "source": dataclasses.asdict(ds.source),
+            "channelcount": len(ds.channels),
+            "channels": [
+                {"index": i, "uri": ch.uri, "inputFrequencyOffset": ch.frequency_offset}
+                for i, ch in enumerate(ds.channels)
+            ],
+        }
+
+    # -- presets (maincore preset load/save, JSON; the document carries its
+    # schema version and older ones migrate forward on load) -----------------
+
+    def save_preset(self, group: str, name: str) -> dict:
+        key = f"{group}/{name}"
+        self.presets[key] = {"schema": PRESET_SCHEMA_VERSION, "group": group, "name": name,
+                             **self._snapshot()}
+        self._persist_presets()
+        return self.presets[key]
+
+    def _snapshot(self) -> dict:
+        """The instance as a preset body (no side effects on the store)."""
+        with_channels = []
+        for ds in self.device_sets:
+            with_channels.append({
+                "direction": ds.direction,
+                "source": dataclasses.asdict(ds.source),
+                "channels": [
+                    # a copy: the live dict would let later PATCHes rewrite it
+                    {"uri": ch.uri, "inputFrequencyOffset": ch.frequency_offset,
+                     "settings": dict(ch.settings)}
+                    for ch in ds.channels
+                ],
+            })
+        return {"deviceSets": with_channels}
+
+    def load_preset(self, group: str, name: str) -> None:
+        """Replace the device sets with the preset's. The whole preset is
+        checked first, so one that names a part not ported yet (a Tx set, a
+        sharded or daemon source, an unported channel kind) raises and
+        leaves the running instance as it was."""
+        preset = migrate_preset(self.presets[f"{group}/{name}"])
+        plan = []
+        for entry in preset["deviceSets"]:
+            if entry.get("direction", "rx") == "tx":
+                raise NotImplementedError(f"Tx device sets are not ported yet: {registry.ITEM_TX}")
+            source = SourceSettings(**_known_fields(SourceSettings, check_source(entry["source"])))
+            channels = []
+            for ch in entry["channels"]:
+                registry.check_kind(ch["uri"])
+                # settings renamed or removed since the preset was saved drop
+                # (API PUTs stay strict)
+                allowed = set(registry.settings_schema(ch["uri"])) | registry.SESSION_KEYS
+                allowed |= set(registry.UNPORTED_KEYS)  # kept, so they raise below
+                settings = {k: v for k, v in ch["settings"].items() if k in allowed}
+                settings["inputFrequencyOffset"] = ch["inputFrequencyOffset"]
+                registry.validate_settings(ch["uri"], settings)
+                channels.append((ch["uri"], settings))
+            plan.append((source, channels))
+        for ds in self.device_sets:
+            ds.stop()
+        self.device_sets = []
+        for source, channels in plan:
+            ds = self.add_device_set("rx")
+            ds.source = source
+            for uri, settings in channels:
+                ds.add_channel(uri, settings)
+
+    def delete_preset(self, group: str, name: str) -> None:
+        del self.presets[f"{group}/{name}"]
+        self._persist_presets()
+
+    def server_file_path(self, path: str, kind: str) -> str:
+        """A REST-supplied server-side path for `kind` ("logs", "profile"),
+        confined to SDRANGEL_TPU_FILES_DIR (default ~/.sdrangel_tpu): an
+        unconfined path on an unauthenticated API writes anywhere. Relative
+        paths land in base/kind/; absolute ones must lie inside the base."""
+        base = os.path.realpath(os.environ.get(
+            "SDRANGEL_TPU_FILES_DIR", os.path.join(os.path.expanduser("~"), ".sdrangel_tpu")))
+        sub = os.path.join(base, kind)
+        os.makedirs(sub, exist_ok=True)
+        resolved = os.path.realpath(path if os.path.isabs(path) else os.path.join(sub, path))
+        if resolved != base and not resolved.startswith(base + os.sep):
+            raise ValueError(f"{kind} path must stay inside {base} "
+                             f"(set SDRANGEL_TPU_FILES_DIR to relocate)")
+        return resolved
+
+    def _preset_file_path(self, path: str) -> str:
+        """A preset file path confined to `preset_dir` (SDRANGEL_TPU_PRESET_DIR
+        or beside the preset store), for the same reason."""
+        base = os.path.realpath(self.preset_dir)
+        os.makedirs(base, exist_ok=True)
+        resolved = os.path.realpath(path if os.path.isabs(path) else os.path.join(base, path))
+        if resolved != base and not resolved.startswith(base + os.sep):
+            raise ValueError(f"preset file path must stay inside the presets directory {base}")
+        return resolved
+
+    def export_preset_file(self, group: str, name: str, path: str, fmt: str = "json") -> None:
+        """Server-side preset export (instancePresetFilePost)."""
+        preset = self.presets[f"{group}/{name}"]
+        if fmt == "reference":
+            raise NotImplementedError(
+                f"the reference's Base64-TLV preset format is not ported yet: {ITEM_REFPRESET}")
+        if fmt != "json":
+            raise ValueError(f"unknown preset export format {fmt!r}")
+        with open(self._preset_file_path(path), "w") as f:
+            json.dump(preset, f, indent=1)
+
+    def import_preset_file(self, path: str) -> str:
+        """Server-side preset import (instancePresetFilePut): one preset
+        object as `export_preset_file` writes it."""
+        with open(self._preset_file_path(path)) as f:
+            raw = f.read()
+        try:
+            preset = json.loads(raw)
+        except json.JSONDecodeError:
+            raise NotImplementedError(
+                f"not a JSON preset; the reference's Base64-TLV preset format is not "
+                f"ported yet: {ITEM_REFPRESET}") from None
+        if not isinstance(preset, dict) or "deviceSets" not in preset:
+            raise ValueError("not a preset file (missing deviceSets)")
+        key = f"{preset.get('group', 'default')}/{preset.get('name', 'imported')}"
+        self.presets[key] = migrate_preset(preset)
+        self._persist_presets()
+        return key
+
+    # -- instance config (GET/PUT /sdrangel/config) ----------------------------
+
+    def config_get(self) -> dict:
+        return {"schema": PRESET_SCHEMA_VERSION, **self._snapshot()}
+
+    def config_put(self, config: dict) -> None:
+        if "deviceSets" not in config:
+            raise ValueError("config must contain deviceSets")
+        self.presets["__config__/incoming"] = {"group": "__config__", "name": "incoming",
+                                               **config}
+        try:
+            self.load_preset("__config__", "incoming")
+        finally:
+            self.presets.pop("__config__/incoming", None)

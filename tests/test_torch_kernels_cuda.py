@@ -184,6 +184,39 @@ def test_receiver_pipeline_on_card_matches_cpu(cuda_device, uri, offset, request
     assert agreement_db(want, got) >= 80.0
 
 
+@pytest.mark.parametrize("preload", [False, True])
+def test_session_on_card_matches_cpu(cuda_device, tmp_path, preload):
+    """The Rx session's DeviceSet on the card (K1 once per block, the packed
+    outputs read back one block behind) against the same set on the CPU:
+    ≥ 80 dB over 4 blocks of a .sdriq capture, ÷8 NFM, streamed or preloaded."""
+    import time
+
+    from sdrangel_tpu_torch.io import sdriq
+    from sdrangel_tpu_torch.runtime.session import DeviceSet
+
+    src = testsource.TestSourceConfig(sample_rate=768_000.0, modulation="fm", amplitude=0.4,
+                                      carrier_freq=20_000.0)
+    path = str(tmp_path / "cap.sdriq")
+    sdriq.write(path, testsource.generate(src, 1 << 20), sample_rate=768_000)
+    audio = {}
+    for device in (cuda_device, "cpu"):
+        ds = DeviceSet(0, device)
+        ds.update_source({"kind": "filesource", "file_path": path, "log2_decim": 3,
+                          "run_blocks": 4, "file_preload": preload})
+        ds.add_channel("sdrangel.channel.nfmdemod",
+                       {"inputFrequencyOffset": 20_000.0, "squelch_db": -60.0})
+        launches = flat_decimate.launches
+        ds.start()
+        t0 = time.time()
+        while ds.running and time.time() - t0 < 120:
+            time.sleep(0.01)
+        assert not ds.error and ds.blocks_processed == 4, ds.error
+        assert flat_decimate.launches == launches + (4 if device is cuda_device else 0)
+        audio[str(device)] = ds.drain_audio(0)
+    assert np.any(audio["cpu"] != 0.0)
+    assert agreement_db(audio["cpu"], audio["cuda"]) >= 80.0
+
+
 def _raw(rng, pairs, device):
     return t(rng.integers(-32768, 32767, size=(pairs, 2), endpoint=True,
                           dtype=np.int16)).to(device)
