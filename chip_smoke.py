@@ -50,7 +50,29 @@ power limit as nvidia-smi reports them):
      preload audio equal to streaming audio bit for bit, ≥ 80 dB against
      RxPipeline.run on the same blocks, the set idle with no error; each
      run's ms per block and real-time factor from the device report, and
-     the streaming feed's ms per block alone.
+     the streaming feed's ms per block alone;
+  8. the Tx path (no kernel of its own; K1 only in the loopback):
+     (a) TxPipeline on cuda at 9.6 MS/s ×64, NFM at +20 kHz, a 1 kHz tone,
+         52 AF blocks of 4096 (819,200 device samples each), timed on the
+         host clock around a synchronize after a warm-up of 4 blocks; each
+         stage alone timed by CUDA events (the stream's elapsed time, which
+         for these launch-bound stages is the host's launch time); the
+         host's pieces alone (AF, upload, enqueue, read-back, a pinned
+         allocation of the read-back's size); the device busy time of 8
+         blocks by torch.profiler; the first 2 blocks
+         on the CPU: int16 within 1 LSB and ≥ 80 dB;
+     (b) the loopback: the 52 blocks written with SdriqWriter and decoded
+         by RxPipeline on cuda at 9.6 MS/s ÷64, NFM at +20 kHz, three
+         13,107,200-sample blocks; K1 launched once per Rx block, the tone
+         above 25 dB;
+     (c) four channels (NFM −50 and +50 kHz, AM +20 kHz, SSB −20 kHz: three
+         groups, the sum/÷n merge), 2 blocks on the card against the CPU;
+     (d) the `mod` CLI on cuda for 1 s at 384 kS/s ×1 (two UpChannelizer
+         stages) against TxPipeline in this process;
+     (e) a Tx device set over HTTP (the server in this process, a Session
+         on cuda, NFM, 9.6 MS/s ×64, a filesink), stopped after 20 blocks
+         by polling blocksProcessed: the .sdriq header and sample count,
+         the set idle with no error, its samples equal to (a)'s.
 Then a JSON line of the kernels, and last the ok line. Any failed check
 raises: the script then exits non-zero and prints no ok line. It needs a
 card; without one it exits non-zero at once.
@@ -92,12 +114,15 @@ from sdrangel_tpu_torch.kernels.flat_decimate_tc import (
 from sdrangel_tpu_torch.parallel import sharded
 from sdrangel_tpu_torch.profile_product import (
     RECEIVERS,
+    _device_time,
     chainsharded_config,
     chainsharded_offsets,
     receiver_pipeline,
 )
-from sdrangel_tpu_torch.runtime.engine import ChannelSpec, DeviceConfig, RxPipeline
+from sdrangel_tpu_torch.dsp import interpolators as interp
+from sdrangel_tpu_torch.runtime.engine import ChannelSpec, DeviceConfig, RxPipeline, fetch
 from sdrangel_tpu_torch.runtime.session import Session
+from sdrangel_tpu_torch.runtime.tx import TxChannelSpec, TxDeviceConfig, TxPipeline
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ATOL = 2e-5  # K1 vs twin, the Pallas kernel's own tolerance
@@ -107,6 +132,11 @@ NFM = "sdrangel.channel.nfmdemod"
 DEVICE = "cuda"
 GEAR_RATE = 12_288_000.0  # bench.py chainsharded: 12.288 MS/s ÷64 -> 192 kHz
 GEAR_BLOCK = 1 << 25
+TX_RATE = 9.6e6  # phase 8: ×64 from a 150 kHz baseband, the mirror of ÷64
+TX_BLOCK = 819_200  # device samples per 4096-sample AF block at 9.6 MS/s ×64
+TX_BLOCKS = 52
+TX_RX_BLOCK = 13_107_200  # RxPipeline's block at 9.6 MS/s ÷64 NFM
+NFM_MOD = "sdrangel.channeltx.modnfm"
 # published H100 SXM peaks at 700 W (NVIDIA's data sheet, dense): HBM bytes/s,
 # FP32 outside the tensor cores and dense TF32 FLOP/s
 HBM_BPS, FP32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
@@ -753,6 +783,260 @@ def phase_server(pipe: RxPipeline, blocks: list[np.ndarray], tag: str) -> dict:
     return {name: r["launches"] for name, r in runs.items()}
 
 
+def tone_af(tones: tuple[float, ...]):
+    """af_source(b, c, count): channel c's continuous full-scale tone, the
+    AF the Tx session and the `mod` CLI make."""
+    def src(b, c, count):
+        tt = (b * count + np.arange(count)) / 48_000.0
+        return np.sin(2 * np.pi * tones[c] * tt).astype(np.float32)
+    return src
+
+
+def int16_agreement(want: np.ndarray, got: np.ndarray) -> tuple[int, float]:
+    """(max |difference| in LSB, agreement in dB) of two int16 captures."""
+    return (int(np.abs(got.astype(np.int32) - want).max()),
+            agreement_db(want.astype(np.float64), got.astype(np.float64)))
+
+
+def tx_stage_ms(pipe: TxPipeline, af: torch.Tensor) -> dict:
+    """Each stage of one Tx block alone, device ms by CUDA events: the AF
+    upload, modulate, UpChannelizer, ×2^k cascade, int16, read-back."""
+    state = pipe.init_state()
+    group = pipe.groups[0]
+    host_af = [af[c].cpu().numpy() for c in range(af.shape[0])]
+    _, iq = group.modulate(state["mod"][0], af, group.cfg, pipe._residuals[0])
+    _, bb = interp.upchannelize_bank(state["up"][0], iq, group.signs)
+    merged = bb.sum(dim=0)
+    _, out = interp.interpolate_cascade(state["dev"], merged, pipe.sink.log2_interp)
+    i16 = (torch.view_as_real(out) * 32768.0).clamp(-32768.0, 32767.0).to(torch.int16)
+    return {
+        "upload": time_ms(lambda: pipe.upload(host_af)),
+        "modulate": time_ms(lambda: group.modulate(state["mod"][0], af, group.cfg,
+                                                   pipe._residuals[0])),
+        "upchannelize": time_ms(lambda: interp.upchannelize_bank(state["up"][0], iq,
+                                                                 group.signs)),
+        "cascade": time_ms(lambda: interp.interpolate_cascade(state["dev"], merged,
+                                                              pipe.sink.log2_interp)),
+        "int16": time_ms(lambda: (torch.view_as_real(out) * 32768.0).clamp(
+            -32768.0, 32767.0).to(torch.int16)),
+        "read-back": time_ms(lambda: fetch(i16)),
+        "step": time_ms(lambda: pipe.step(state, af)),
+    }
+
+
+def tx_host_ms(pipe: TxPipeline, af, iters: int = 10) -> dict:
+    """The host's part of one Tx block, each piece alone on the host clock
+    (mean of `iters`, synchronized before and after): the AF tone, the
+    upload (stack, pin, H2D), enqueueing the step (no wait), the read-back
+    (a pinned buffer, D2H, the wait) and a pinned allocation of the
+    read-back's size alone."""
+    state = pipe.init_state()
+    host_af = [af(0, c, 4096) for c in range(len(pipe.specs))]
+    dev_af = pipe.upload(host_af)
+    _, out = pipe.step(state, dev_af)
+
+    def clock(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    def enqueue() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.step(state, dev_af)
+        spent = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return spent * 1e3
+
+    enqueue()
+    return {
+        "af": clock(lambda: [af(0, c, 4096) for c in range(len(pipe.specs))]),
+        "upload": clock(lambda: pipe.upload(host_af)),
+        "step enqueue": sum(enqueue() for _ in range(iters)) / iters,
+        "read-back": clock(lambda: fetch(out)),
+        "pinned alloc": clock(lambda: torch.empty(out.shape, dtype=out.dtype, pin_memory=True)),
+    }
+
+
+def phase_tx(dev: torch.device, tag: str) -> int:
+    """The Tx path on the card: full width, loopback through K1, four
+    channels, the CLI, a Tx device set over HTTP."""
+    af = tone_af((1000.0,))
+    spec = [TxChannelSpec(NFM_MOD, 20_000.0, {})]
+    pipe = TxPipeline(TxDeviceConfig(TX_RATE, 6), spec, device=dev)
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 flags on after TxPipeline construction")
+    check(pipe.device_block == TX_BLOCK and pipe.plans[0].signs == (),
+          f"Tx device block {pipe.device_block}, plan {pipe.plans[0]}")
+    list(pipe.run(af, 4))  # warm-up by block count: cuFFT plans, cuDNN choices
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blocks = list(pipe.run(af, TX_BLOCKS))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    tx = np.concatenate(blocks)
+    check(tx.shape == (TX_BLOCKS * TX_BLOCK, 2) and tx.dtype == np.int16,
+          f"Tx output {tx.shape} {tx.dtype}")
+    block_s = 4096 / 48_000.0
+    stages = tx_stage_ms(pipe, pipe.upload([af(0, 0, 4096)]))
+    host = tx_host_ms(pipe, af)
+    t0 = time.perf_counter()
+    cpu = np.concatenate(list(TxPipeline(TxDeviceConfig(TX_RATE, 6), spec, device="cpu").run(af, 2)))
+    cpu_s = time.perf_counter() - t0
+    lsb, agree = int16_agreement(cpu, tx[:len(cpu)])
+    check(lsb <= 1 and agree >= 80.0, f"Tx card vs CPU: {lsb} LSB, {agree:.1f} dB")
+    print(f"phase 8a tx: 9.6 MS/s x64 NFM +20 kHz, {TX_BLOCKS} blocks of {TX_BLOCK} int16 I/Q "
+          f"({len(tx)} samples) in {elapsed:.4f} s = {elapsed / TX_BLOCKS * 1e3:.3f} ms/block "
+          f"(host clock, read-back included, after 4 warm-up blocks), Tx real-time factor "
+          f"{TX_BLOCKS * block_s / elapsed:.2f}; stages alone, device ms by CUDA events: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+          + "; host ms alone: " + ", ".join(f"{k} {v:.4f}" for k, v in host.items())
+          + f"; card vs CPU on 2 blocks: max {lsb} LSB, {agree:.2f} dB (CPU run {cpu_s:.1f} s) "
+          f"[{tag}]", flush=True)
+    print(f"phase 8a tx: device time of 8 blocks by torch.profiler, against the timed run's "
+          f"{elapsed / TX_BLOCKS * 1e3:.3f} ms/block [{tag}]", flush=True)
+    _device_time(lambda: list(pipe.run(af, 8)), 8, elapsed / TX_BLOCKS * 8)
+
+    # (b) the loopback through the port's Rx path, K1 in front
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tx.sdriq")
+        writer = sdriq.SdriqWriter(path, sample_rate=int(TX_RATE))
+        for b in blocks:
+            writer.write(b)
+        writer.close()
+        info, mm = sdriq.open_mmap(path)
+        check(info.n_samples == len(tx) and info.sample_rate == int(TX_RATE),
+              f"loopback capture header {info}")
+        rx = RxPipeline(DeviceConfig(TX_RATE, log2_decim=6),
+                        [ChannelSpec(NFM, 20_000.0, {"squelch_db": -60.0})], dev)
+        check(rx.device_block == TX_RX_BLOCK, f"Rx block {rx.device_block}")
+        n_rx = 3
+        check(n_rx * TX_RX_BLOCK <= info.n_samples, "loopback capture too short")
+        flat_decimate.launches = flat_decimate_tc.launches = 0
+        t0 = time.perf_counter()
+        audio = np.concatenate([o["channels"][0]["audio"] for _, o in rx.run(
+            lambda b, count: sdriq.read_block(mm, b * count, count), n_rx)])
+        rx_s = time.perf_counter() - t0
+        loop_launches, tc = flat_decimate.launches, flat_decimate_tc.launches
+        del mm
+    check(loop_launches == n_rx and tc == 0,
+          f"loopback: K1 launched {loop_launches} times, K1-TC {tc}, for {n_rx} Rx blocks")
+    check(bool(np.isfinite(audio).all()), "loopback: non-finite audio")
+    snr = tone_snr(audio[len(audio) // 2:].astype(np.float64), 1000.0, 48_000.0)
+    check(snr > 25.0, f"loopback tone SNR {snr:.1f} dB")
+    print(f"phase 8b tx loopback: the {TX_BLOCKS} blocks as a .sdriq, decoded by RxPipeline on "
+          f"cuda at 9.6 MS/s /64 NFM +20 kHz over {n_rx} blocks of {TX_RX_BLOCK} in {rx_s:.2f} s; "
+          f"K1 launches {loop_launches}, K1-TC {tc}; {len(audio)} audio samples, tone SNR "
+          f"{snr:.2f} dB [{tag}]", flush=True)
+
+    # (c) four channels in three groups, merged by sum/÷n
+    four = [TxChannelSpec(NFM_MOD, -50_000.0, {}), TxChannelSpec(NFM_MOD, 50_000.0, {}),
+            TxChannelSpec("sdrangel.channeltx.modam", 20_000.0, {}),
+            TxChannelSpec("sdrangel.channeltx.modssb", -20_000.0, {})]
+    src4 = tone_af((700.0, 1100.0, 900.0, 1300.0))
+    card4, cpu4 = (np.concatenate(list(TxPipeline(TxDeviceConfig(TX_RATE, 6), four,
+                                                  device=device).run(src4, 2)))
+                   for device in (dev, "cpu"))
+    groups4 = [len(g.idxs) for g in TxPipeline(TxDeviceConfig(TX_RATE, 6), four,
+                                               device=dev).groups]
+    check(groups4 == [2, 1, 1], f"four channels: groups {groups4}")
+    lsb4, agree4 = int16_agreement(cpu4, card4)
+    check(lsb4 <= 1 and agree4 >= 80.0, f"four channels: card vs CPU {lsb4} LSB, {agree4:.1f} dB")
+    x = card4[TX_BLOCK:].astype(np.float32)
+    c = (x[:, 0] + 1j * x[:, 1])[::64]  # the 150 kHz baseband's samples (in-band)
+    spec4 = np.abs(np.fft.fft(c * np.hanning(len(c))))
+    freqs = np.fft.fftfreq(len(c), 64 / TX_RATE)
+    peaks = [float(spec4[np.abs(freqs - f0) < 6_000.0].max() / np.median(spec4))
+             for f0 in (-50e3, 50e3, 20e3, -19e3)]
+    check(min(peaks) > 50.0, f"four channels: carrier peaks over the median {peaks}")
+    print(f"phase 8c tx four channels: NFM -50/+50 kHz, AM +20 kHz, SSB -20 kHz in groups "
+          f"{groups4}, 2 blocks: card vs CPU max {lsb4} LSB, "
+          f"{agree4:.2f} dB; each carrier {min(peaks):.0f}x or more above the median bin [{tag}]",
+          flush=True)
+
+    # (d) the CLI: 384 kS/s ×1, two UpChannelizer stages
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "cli.sdriq")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "sdrangel_tpu_torch", "mod", "--device", DEVICE,
+             "--channel", "nfm:20000", "--rate", "384000", "--seconds", "1.0", "--out", out],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"mod CLI exit {proc.returncode}:\n{proc.stderr}")
+        info, mm = sdriq.open_mmap(out)
+        cli = np.array(mm)
+        del mm
+    ref_pipe = TxPipeline(TxDeviceConfig(384_000.0), [TxChannelSpec(NFM_MOD, 20_000.0, {})],
+                          device=dev)
+    check(ref_pipe.plans[0].signs == (0, 0), f"CLI plan {ref_pipe.plans[0]}")
+    ref = np.concatenate(list(ref_pipe.run(tone_af((1000.0,)), 11)))
+    check(info.sample_rate == 384_000 and cli.shape == ref.shape, f"CLI capture {cli.shape}")
+    lsb_cli, agree_cli = int16_agreement(ref, cli)
+    check(lsb_cli <= 1 and agree_cli >= 80.0, f"CLI vs TxPipeline {lsb_cli} LSB")
+    print(f"phase 8d tx cli: mod --device cuda 384 kS/s x1 nfm:20000 (stages {ref_pipe.plans[0].signs}) "
+          f"exit 0 in {cli_s:.2f} s (process start included), {len(cli)} samples; against "
+          f"TxPipeline in this process max {lsb_cli} LSB, {agree_cli:.2f} dB [{tag}]", flush=True)
+    print("phase 8d tx cli stderr: " + proc.stderr.strip().replace("\n", " | "), flush=True)
+
+    # (e) a Tx device set over HTTP
+    n_set = 20
+    session = Session(device=DEVICE)
+    srv = make_server(session, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, kwargs={"poll_interval": 0.05},
+                              daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "set.sdriq")
+            code, reply = http(base, "/sdrangel/devicesets", "POST", {"direction": "tx"})
+            check(code == 201 and reply["direction"] == "tx", f"add Tx set {reply}")
+            code, reply = http(base, "/sdrangel/deviceset/0/device/settings", "PATCH", {
+                "file_path": path, "sample_rate": TX_RATE, "log2_interp": 6})
+            check(code == 200, f"sink settings {reply}")
+            code, reply = http(base, "/sdrangel/deviceset/0/channel", "POST", {
+                "channelType": NFM_MOD, "inputFrequencyOffset": 20_000.0,
+                "toneFrequency": 1000.0})
+            check(code == 201, f"add modulator {reply}")
+            t0 = time.perf_counter()
+            code, reply = http(base, "/sdrangel/deviceset/0/device/run", "POST")
+            check(code == 200, f"run {reply}")
+            while http(base, "/sdrangel/deviceset/0/device/report")[1]["blocksProcessed"] < n_set:
+                check(time.perf_counter() - t0 < 300, "Tx set: 20 blocks not reached in 300 s")
+                time.sleep(0.005)
+            _, report = http(base, "/sdrangel/deviceset/0/device/report")
+            code, _ = http(base, "/sdrangel/deviceset/0/device/run", "DELETE")
+            wall = time.perf_counter() - t0
+            check(code == 200, "stop the Tx set")
+            _, entry = http(base, "/sdrangel/deviceset/0")
+            check(entry["state"] == "idle" and not entry["error"],
+                  f"Tx set {entry['state']} {entry['error']!r}")
+            info, mm = sdriq.open_mmap(path)
+            recorded = np.array(mm[:n_set * TX_BLOCK])
+            del mm
+    finally:
+        session.shutdown()
+        srv.shutdown()
+        srv.server_close()
+    final = session.device_sets[0].blocks_processed
+    check(info.sample_rate == int(TX_RATE) and info.n_samples == final * TX_BLOCK
+          and final >= n_set, f"Tx set capture {info}, {final} blocks")
+    equal = np.array_equal(recorded, tx[:n_set * TX_BLOCK])
+    check(equal, "the Tx set's samples differ from phase 8a's first 20 blocks")
+    print(f"phase 8e tx server: a Tx set over HTTP (NFM +20 kHz, 9.6 MS/s x64, filesink) stopped "
+          f"after {report['blocksProcessed']} blocks ({final} recorded, {info.n_samples} samples); "
+          f"its first {n_set} blocks equal phase 8a's ({equal}); device report at the stop: "
+          f"realtimeFactor {report['realtimeFactor']:.2f}, elapsedSeconds "
+          f"{report['elapsedSeconds']:.4f} ({report['elapsedSeconds'] / report['blocksProcessed'] * 1e3:.3f} "
+          f"ms/block); POST run to stop {wall:.3f} s host clock [{tag}]", flush=True)
+    return loop_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -802,6 +1086,7 @@ def main() -> int:
     tc_launches = phase_bank(dev, tag)
     phase_receivers(dev, tag)
     server_launches = phase_server(pipe, product_blocks, tag)
+    tx_loopback_launches = phase_tx(dev, tag)
 
     print(tag, flush=True)
     print(json.dumps({"kernels": [{
@@ -819,6 +1104,7 @@ def main() -> int:
         "gear_block_ms": tc["k1_ms"],
         "forms": k1["forms"],
         "server_launches": server_launches,
+        "tx_loopback_launches": tx_loopback_launches,
     }, {
         "name": "flat_decimate_tc",
         "route": "cuda",

@@ -1,4 +1,5 @@
-"""CLI — headless Rx pipeline runner and REST server on a chosen torch device.
+"""CLI — headless Rx and Tx pipeline runners and the REST server on a chosen
+torch device.
 
 Examples:
   # the product path on the card: 10 MS/s i16, ÷64, NFM at +20 kHz
@@ -12,6 +13,10 @@ Examples:
 
   # inspect a capture
   python -m sdrangel_tpu_torch info --in capture.sdriq
+
+  # modulate a 1 kHz tone onto NFM at +20 kHz, ×64 to a 9.6 MS/s .sdriq
+  python -m sdrangel_tpu_torch mod --device cuda --channel nfm:20000 \
+      --rate 9600000 --log2-interp 6 --seconds 2 --out tx.sdriq
 
   # the REST control plane (the sdrangelsrv role) on the card
   python -m sdrangel_tpu_torch server --device cuda --api-port 8091
@@ -132,6 +137,55 @@ def cmd_demod(args) -> int:
     return 0
 
 
+_MOD_URIS = {
+    "nfm": "sdrangel.channeltx.modnfm",
+    "am": "sdrangel.channeltx.modam",
+    "ssb": "sdrangel.channeltx.modssb",
+    "wfm": "sdrangel.channeltx.modwfm",
+}
+
+
+def cmd_mod(args) -> int:
+    import torch
+
+    from .channels import cwkeyer
+    from .io import sdriq
+    from .runtime.tx import BLOCK_AF, TxChannelSpec, TxDeviceConfig, TxPipeline
+
+    kind, _, rest = args.channel.partition(":")
+    if kind not in _MOD_URIS:
+        raise SystemExit(f"modulator kind {kind!r} is not ported yet; ported: "
+                         f"{sorted(_MOD_URIS)}")
+    sink = TxDeviceConfig(sample_rate=args.rate, log2_interp=args.log2_interp)
+    pipe = TxPipeline(sink, [TxChannelSpec(_MOD_URIS[kind], float(rest) if rest else 0.0, {})],
+                      BLOCK_AF, torch.device(args.device))
+    keyer = (cwkeyer.CWKeyer(args.cw, cwkeyer.CWConfig(wpm=args.wpm), loop=True)
+             if args.cw else None)
+
+    def af(b, c, count):
+        tt = (b * count + np.arange(count)) / 48000.0
+        tone = np.sin(2 * np.pi * args.tone * tt).astype(np.float32)
+        return tone if keyer is None else tone * keyer.next_block(count)
+
+    n_blocks = max(1, int(args.seconds * 48000.0) // BLOCK_AF)
+    print(f"device {pipe.device}; {n_blocks} blocks of {pipe.device_block} samples at "
+          f"{args.rate:.0f} S/s (x{1 << args.log2_interp} from {sink.baseband_rate:.0f} S/s); "
+          f"channel plan: {pipe.plans[0]}", file=sys.stderr)
+    writer = sdriq.SdriqWriter(args.out, sample_rate=int(args.rate))
+    t0 = time.perf_counter()
+    try:
+        for block in pipe.run(af, n_blocks):
+            writer.write(block)
+    finally:
+        writer.close()
+    elapsed = time.perf_counter() - t0
+    n = writer.samples_written
+    print(f"wrote {n} samples ({n / args.rate:.2f} s at {args.rate:.0f} S/s) to {args.out} "
+          f"in {elapsed:.2f} s on {pipe.device} ({n / args.rate / elapsed:.1f}x real time)",
+          file=sys.stderr)
+    return 0
+
+
 def cmd_server(args) -> int:
     import logging
 
@@ -182,6 +236,19 @@ def main(argv=None) -> int:
                     help="torch device the device sets run on: cuda (the default), "
                          "cuda:N or cpu")
     ps.set_defaults(fn=cmd_server)
+
+    pt = sub.add_parser("mod", help="modulate a tone to a .sdriq file")
+    pt.add_argument("--device", default="cuda",
+                    help="torch device to run on: cuda (the default), cuda:N or cpu")
+    pt.add_argument("--channel", required=True, help="kind:offset_hz (nfm|am|ssb|wfm)")
+    pt.add_argument("--rate", type=float, default=384000.0, help="DAC sample rate")
+    pt.add_argument("--log2-interp", type=int, default=0, choices=range(7))
+    pt.add_argument("--tone", type=float, default=1000.0, help="AF tone Hz")
+    pt.add_argument("--cw", default=None, metavar="TEXT", help="CW keying text")
+    pt.add_argument("--wpm", type=float, default=15.0)
+    pt.add_argument("--seconds", type=float, default=2.0)
+    pt.add_argument("--out", required=True, help="output .sdriq path")
+    pt.set_defaults(fn=cmd_mod)
 
     args = p.parse_args(argv)
     return args.fn(args)

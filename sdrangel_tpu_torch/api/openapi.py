@@ -6,9 +6,10 @@ unless regenerated. Here the document is built from the code:
 - PATHS is the path layout, held against the routes of api/server.py in
   both directions by tests/test_torch_api.py, so a route served but not
   documented, or documented but not served, fails a test;
-- each channel kind's settings and report schemas come from the registry.
+- each channel kind's settings and report schemas come from the registry,
+  the Rx demods' and the Tx modulators'.
 A route of a part not ported yet is served and answers 501 with its ROADMAP
-item (the data-channel endpoint; a Tx device set).
+item (the data-channel endpoint).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ PATHS = {
     "/sdrangel": {"get": {"summary": "instance summary"}},
     "/sdrangel/devicesets": {
         "get": {"summary": "device set list"},
-        "post": {"summary": "add an Rx device set (body: {direction}; tx answers 501)"},
+        "post": {"summary": "add a device set (body: {direction}: rx, or tx for a sink)"},
         "delete": {"summary": "remove last device set"},
     },
     "/sdrangel/devices": {"get": {"summary": "available source kinds"}},
@@ -43,7 +44,7 @@ PATHS = {
         "get": {}, "put": {}, "patch": {}},
     "/sdrangel/deviceset/{i}/channel/{j}/report": {"get": {}},
     "/sdrangel/deviceset/{i}/channel/{j}/audio": {
-        "get": {"summary": "drain demod audio as WAV"}},
+        "get": {"summary": "drain demod audio as WAV (an Rx set's; 400 on a Tx set)"}},
     "/sdrangel/deviceset/{i}/channel/{j}/data": {
         "get": {"summary": "data-channel block: 501, the data channels are not ported yet"}},
     "/sdrangel/presets": {"get": {}},
@@ -71,7 +72,7 @@ PATHS = {
                             "(body: {seconds, path})"}},
     "/sdrangel/openapi": {"get": {}},
     "/sdrangel/deviceset": {
-        "post": {"summary": "add an Rx device set (?tx=1 answers 501)"},
+        "post": {"summary": "add a device set (?tx=1 for a sink)"},
         "delete": {"summary": "remove last device set"}},
     "/sdrangel/deviceset/{i}/device": {
         "put": {"summary": "select device kind (body: {hwType})"}},
@@ -115,7 +116,7 @@ STATIC_SCHEMAS = {
         "type": "object",
         "properties": {
             "index": {"type": "integer"},
-            "direction": {"type": "string", "enum": ["rx"]},
+            "direction": {"type": "string", "enum": ["rx", "tx"]},
             "state": {"type": "string"},
             "error": {"type": "string"},
             "realtimeFactor": {"type": "number"},

@@ -21,10 +21,15 @@ with the JAX package's path layout (a subset of the reference's):
   GET/PATCH     /sdrangel/audio                   egress list + prefs
   GET/PUT       /sdrangel/logging                 level + rotated log file
 
+A device set is Rx (a source and its demods) or Tx (a sink and its
+modulators: POST /sdrangel/devicesets {"direction": "tx"}, or
+/sdrangel/deviceset?tx=1); the device settings and report of a Tx set are
+its sink's.
+
 Errors: a malformed request or setting is a 400, an unknown index or key a
-404, and a part not ported yet (a Tx device set, a sharded or daemon source,
-UDP/RTP egress, a data channel, the reference-TLV preset format) a 501 whose
-message names its ROADMAP item.
+404, and a part not ported yet (a sharded or daemon source, the daemon sink,
+UDP/RTP egress and AF ingest, a data channel, the ATV modulator, the
+reference-TLV preset format) a 501 whose message names its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from ..channels import registry
-from ..runtime.session import SOURCE_KINDS, Session
+from ..runtime.session import SOURCE_KINDS, Session, device_settings
 
 logger = logging.getLogger("sdrangel_tpu_torch.api")
 
@@ -161,18 +166,19 @@ class ApiHandler(BaseHTTPRequestHandler):
                 return self._json(200, s.summary()["devicesetlist"]["deviceSets"][ds.index])
             if m := _DEVICE_SETTINGS.match(p):
                 ds = s.device_sets[int(m.group(1))]
-                return self._json(200, dataclasses.asdict(ds.source))
+                return self._json(200, dataclasses.asdict(device_settings(ds)))
             if m := _DEVICE_REPORT.match(p):
                 # devicesetDeviceReportGet role: live acquisition state
                 ds = s.device_sets[int(m.group(1))]
+                target = device_settings(ds)
                 return self._json(
                     200,
                     {
                         "state": "error" if ds.error else (
                             "running" if ds.running else "idle"),
                         "error": ds.error,
-                        "sampleRate": ds.source.sample_rate,
-                        "centerFrequency": ds.source.center_frequency,
+                        "sampleRate": target.sample_rate,
+                        "centerFrequency": target.center_frequency,
                         "blocksProcessed": ds.blocks_processed,
                         "realtimeFactor": ds.realtime_factor,
                         "elapsedSeconds": ds.elapsed_s,
@@ -242,6 +248,9 @@ class ApiHandler(BaseHTTPRequestHandler):
                 import wave as _wave
 
                 ds = s.device_sets[int(m.group(1))]
+                if ds.direction == "tx":  # a Tx set has no demodulated audio
+                    return self._error(400, "audio drain is an Rx channel endpoint; "
+                                            "this device set is tx")
                 audio = ds.drain_audio(int(m.group(2)))
                 buf = _io.BytesIO()
                 pcm = np.clip(audio * 32768.0, -32768, 32767).astype(np.int16)
@@ -315,14 +324,16 @@ class ApiHandler(BaseHTTPRequestHandler):
                      ]},
                 )
             if p == "/sdrangel/channels":
+                kinds = [(uri, "rx") for uri in sorted(registry.REGISTRY)]
+                kinds += [(uri, "tx") for uri in sorted(registry.TX_KINDS)]
                 return self._json(
                     200,
-                    {"channelcount": len(registry.REGISTRY),
+                    {"channelcount": len(kinds),
                      "sessionKeys": sorted(registry.SESSION_KEYS),
                      "channels": [
-                         {"uri": uri, "direction": "rx",
+                         {"uri": uri, "direction": direction,
                           "settings": registry.settings_schema(uri)}
-                         for uri in sorted(registry.REGISTRY)
+                         for uri, direction in kinds
                      ]},
                 )
             if p == "/sdrangel/audio":
@@ -475,7 +486,7 @@ class ApiHandler(BaseHTTPRequestHandler):
                 # SWG DTOs reject malformed settings at parse time)
                 ds = s.device_sets[int(m.group(1))]
                 ds.update_source(body)
-                return self._json(200, dataclasses.asdict(ds.source))
+                return self._json(200, dataclasses.asdict(device_settings(ds)))
             if m := _FOCUS.match(p):
                 # devicesetFocusPatch: GUI-only — exact server-instance parity
                 # (webapiadaptersrv.cpp:1004-1011)
@@ -487,7 +498,7 @@ class ApiHandler(BaseHTTPRequestHandler):
                 if not kind:
                     raise _BadRequest("missing required field 'hwType'")
                 ds.update_source({"kind": kind})
-                return self._json(200, dataclasses.asdict(ds.source))
+                return self._json(200, dataclasses.asdict(device_settings(ds)))
             if p == "/sdrangel/dvserial":
                 # instanceDVSerialPatch (?dvserial=1): store the support flag;
                 # a headless host has no dongles, so no scan happens

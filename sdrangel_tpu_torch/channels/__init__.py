@@ -1,1 +1,2 @@
-"""Rx channels (demodulators) and their registry."""
+"""Rx channels (demodulators), Tx channels (modulators, the CW keyer) and
+their registry."""

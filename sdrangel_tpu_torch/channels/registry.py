@@ -1,7 +1,9 @@
 """Channel-type registry — the plugin-manager role (pluginmanager.{h,cpp}):
 channel kinds keyed by the reference's URIs. The port registers the NFM,
-AM, SSB and WFM receivers; the other Rx channels wait (ROADMAP.md,
-queue 1), and naming one raises NotImplementedError with its queue item.
+AM, SSB and WFM receivers (REGISTRY) and the NFM, AM, SSB and WFM
+modulators of the Tx device sets (TX_KINDS; runtime/tx.py holds their
+modulate functions); the other channels wait (ROADMAP.md, queue 1), and
+naming one raises NotImplementedError with its queue item.
 
 The session and the REST server read the settable fields from here: each
 kind's schema is derived from its config dataclass, so it cannot drift from
@@ -12,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
-from . import demod_am, demod_nfm, demod_ssb, demod_wfm
+from . import demod_am, demod_nfm, demod_ssb, demod_wfm, modulators
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,8 +37,10 @@ class ChannelKind:
 
 
 REGISTRY: dict[str, ChannelKind] = {}
-#: uri -> config dataclass, for the settings schemas
+#: uri -> config dataclass, for the settings schemas (Rx and Tx kinds)
 CONFIG_CLASSES: dict[str, type] = {}
+#: Tx kinds: uri -> modulator config dataclass
+TX_KINDS: dict[str, type] = {}
 
 
 def register(kind: ChannelKind) -> None:
@@ -44,29 +48,38 @@ def register(kind: ChannelKind) -> None:
     CONFIG_CLASSES[kind.uri] = kind.config_cls
 
 
-#: config fields the pipeline binds (not settable over the API)
-_PIPELINE_FIELDS = {"channel_rate", "input_offset", "block_in"}
-#: per-channel keys the session handles outside the demod config: the
-#: offset goes to the channel plan, audioFile to the WAV egress
-SESSION_KEYS = {"inputFrequencyOffset", "audioFile"}
+def register_config(uri: str, config_cls: type) -> None:
+    """A Tx kind: its settings schema comes from its config dataclass."""
+    TX_KINDS[uri] = config_cls
+    CONFIG_CLASSES[uri] = config_cls
 
-ITEM_OTHER_RX = "ROADMAP.md queue 1, item 6 (the other Rx channels and their host decoders)"
-ITEM_TX = "ROADMAP.md queue 1, item 7 (Tx)"
-ITEM_UDP_RTP = "ROADMAP.md queue 1, item 12 (UDP/RTP egress: io/udp.py, io/rtp.py)"
+
+#: config fields the pipeline binds (not settable over the API)
+_PIPELINE_FIELDS = {"channel_rate", "input_offset", "block_in", "block_af"}
+#: per-channel keys the session handles outside the demod and mod configs:
+#: the offset goes to the channel plan, audioFile to the WAV egress, and
+#: the Tx AF source keys (toneFrequency, afFile, cwText, cwWpm) to the Tx
+#: worker's AF source
+SESSION_KEYS = {"inputFrequencyOffset", "audioFile", "toneFrequency", "afFile", "cwText",
+                "cwWpm"}
+
+ITEM_OTHER_RX = ("ROADMAP.md queue 1, item 6 (the other channels: the other Rx channels, "
+                 "their host decoders and ATV's modulator)")
+ITEM_UDP_RTP = ("ROADMAP.md queue 1, item 12 (UDP/RTP egress and ingest: io/udp.py, "
+                "io/rtp.py)")
 #: the JAX package's channel kinds that the port does not carry yet
 UNPORTED_KINDS = {
     uri: ITEM_OTHER_RX for uri in (
         "sdrangel.channel.bfm", "sdrangel.channel.chanalyzer",
         "sdrangel.channel.lorademod", "sdrangel.channel.dsddemod",
         "sdrangel.channel.demodatv", "sdrangel.channel.demoddatv",
-        "sdrangel.channel.udpsrc")
+        "sdrangel.channel.udpsrc", "sdrangel.channeltx.modatv")
 }
 #: the JAX session's per-channel keys that the port does not carry yet
 UNPORTED_KEYS = {
     "audioUdp": ITEM_UDP_RTP, "audioRtp": ITEM_UDP_RTP, "udpAddress": ITEM_UDP_RTP,
     "udpPort": ITEM_UDP_RTP, "udpFormat": ITEM_UDP_RTP, "datvContinuous": ITEM_OTHER_RX,
-    "toneFrequency": ITEM_TX, "afUdp": ITEM_TX, "afFile": ITEM_TX,
-    "cwText": ITEM_TX, "cwWpm": ITEM_TX,
+    "afUdp": ITEM_UDP_RTP,
 }
 
 
@@ -82,20 +95,20 @@ def settings_schema(uri: str) -> dict[str, dict]:
     return schema
 
 
-def check_kind(uri: str) -> None:
+def check_kind(uri: str, direction: str = "rx") -> None:
     """NotImplementedError for a kind the port does not carry yet (with its
-    ROADMAP item), KeyError for a kind nobody knows."""
+    ROADMAP item), KeyError for a kind no device set of `direction` takes."""
     if uri in UNPORTED_KINDS:
         raise NotImplementedError(f"{uri} is not ported yet: {UNPORTED_KINDS[uri]}")
-    if uri not in REGISTRY:
-        raise KeyError(uri)
+    if uri not in (TX_KINDS if direction == "tx" else REGISTRY):
+        raise KeyError(f"{uri} is no {direction} channel kind")
 
 
-def validate_settings(uri: str, settings: dict) -> None:
+def validate_settings(uri: str, settings: dict, direction: str = "rx") -> None:
     """Reject unknown setting keys up front (ValueError) rather than inside
     the worker at pipeline build; a key the port does not carry yet raises
     NotImplementedError naming its ROADMAP item."""
-    check_kind(uri)
+    check_kind(uri, direction)
     left_out = sorted(set(settings) & set(UNPORTED_KEYS))
     if left_out:
         raise NotImplementedError(
@@ -139,3 +152,10 @@ register(ChannelKind(
     demod_wfm.process, needs_fft_hop=True, dynamic_fields=_FULL_DYN,
     meters=demod_wfm.meters,
 ))
+
+
+for _uri, _cfg in (("sdrangel.channeltx.modnfm", modulators.NFMModConfig),
+                   ("sdrangel.channeltx.modam", modulators.AMModConfig),
+                   ("sdrangel.channeltx.modssb", modulators.SSBModConfig),
+                   ("sdrangel.channeltx.modwfm", modulators.WFMModConfig)):
+    register_config(_uri, _cfg)

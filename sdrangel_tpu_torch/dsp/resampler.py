@@ -1,15 +1,17 @@
-"""Polyphase rational resampler — the audio-rate decimator.
+"""Polyphase rational resampler — the audio-rate decimator of the Rx
+demods and the audio-to-channel-rate interpolator of the Tx modulators.
 
-Reference: sdrbase/dsp/interpolator.{h,cpp} — a 16-phase windowed-sinc
+Reference: sdrbase/dsp/interpolator.{h,cpp} — a windowed-sinc polyphase
 prototype (createPolyphaseLowPass, interpolator.cpp:7-55) and a fractional
 `distance` recurrence that picks the phase leg per output
-(Interpolator::decimate, interpolator.h:23-35).
+(Interpolator::decimate, interpolator.h:23-35; Interpolator::interpolate,
+:39-52).
 
 For in/out = p/q the per-output input window and phase leg repeat every q
 outputs and p inputs, so a block of m'·p inputs is m' windows of L samples
 (stride p) times a static (q, L) kernel matrix: one matmul. The carried state
-is the ntaps-1 input tail. Only the decimation direction (in_rate ≥
-out_rate, the Rx path) is here; Tx interpolation waits for the Tx port.
+is the ntaps-1 input tail. Both directions run through the same executor;
+only the schedule differs.
 """
 
 from __future__ import annotations
@@ -91,17 +93,20 @@ def make_plan(
     phase_steps: int = 16,
     nb_taps_per_phase: float = 4.5,
 ) -> ResamplerPlan:
-    """The reference-exact decimation schedule.
+    """The reference-exact schedule for either direction.
 
-    Simulates Interpolator::decimate's recurrence (per input `distance -= 1`;
-    whenever distance < 1 emit phase floor(distance·phaseSteps), clamped at
-    0, then distance += in/out) in integer units of 1/q, over one steady
-    period. The stream reproduces the reference's from its output 1 on.
+    Decimation (in_rate ≥ out_rate) simulates Interpolator::decimate's
+    recurrence (per input `distance -= 1`; whenever distance < 1 emit phase
+    floor(distance·phaseSteps), clamped at 0, then distance += in/out) in
+    integer units of 1/q, over one steady period. The stream reproduces the
+    reference's from its output 1 on.
+
+    Interpolation (in_rate < out_rate, the Tx modulators) simulates
+    Interpolator::interpolate (per output: consume an input while distance
+    ≥ 1, emit phase floor(distance·phaseSteps), then distance += in/out).
+    Each leg gets a leading zero tap, so a window anchored at the count of
+    consumed inputs ends on the newest consumed one.
     """
-    if in_rate < out_rate:
-        raise NotImplementedError(
-            "interpolation (in_rate < out_rate) is the Tx path, which waits for "
-            "the Tx port (ROADMAP.md, queue 1)")
     frac = Fraction(in_rate / out_rate).limit_denominator(1 << 20)
     p, q = frac.numerator, frac.denominator
     if block_in % p:
@@ -113,6 +118,8 @@ def make_plan(
     legs16 = create_polyphase_lowpass(
         phase_steps, 1.0, phase_steps * in_rate, cutoff, nb_taps_per_phase)
     block_out = block_in * q // p
+    if in_rate < out_rate:
+        return _interpolation_plan(in_rate, out_rate, block_in, legs16, p, q)
     d = 0  # distance · q
     n = 0
     emitted: list[tuple[int, int]] = []
@@ -139,6 +146,42 @@ def make_plan(
         taps=legs16,
         start_idx=(base_n[j % q] + (j // q) * p).astype(np.int32),
         phase=base_ph[j % q].astype(np.int32),
+        p=p,
+        q=q,
+    )
+
+
+def _interpolation_plan(in_rate: float, out_rate: float, block_in: int, legs: np.ndarray,
+                        p: int, q: int) -> ResamplerPlan:
+    """Interpolator::interpolate's schedule (interpolator.h:39-52), q
+    outputs per p inputs, over legs with a leading zero column."""
+    if q > 256:
+        raise ValueError(f"upsampling denominator too large: {q}")
+    phase_steps = legs.shape[0]
+    taps = np.concatenate([np.zeros((phase_steps, 1), legs.dtype), legs], axis=1)
+    block_out = block_in * q // p
+    d = 0  # distance · q
+    consumed = 0
+    start_idx, phase = [], []
+    for _ in range(block_out):
+        if d >= q:
+            consumed += 1
+            d -= q
+        phase.append((d * phase_steps) // q)
+        start_idx.append(consumed)
+        d += p
+    if start_idx[:block_out - q] != [s - p for s in start_idx[q:]]:
+        raise RuntimeError(f"upsample schedule is not periodic: {p=} {q=}")
+    return ResamplerPlan(
+        in_rate=in_rate,
+        out_rate=out_rate,
+        block_in=block_in,
+        block_out=block_out,
+        ntaps=taps.shape[1],
+        phase_steps=phase_steps,
+        taps=taps.astype(np.float32),
+        start_idx=np.asarray(start_idx, np.int32),
+        phase=np.asarray(phase, np.int32),
         p=p,
         q=q,
     )

@@ -1,1 +1,2 @@
-"""Rx runtime: ingest corrections and the per-block pipeline engine."""
+"""Runtime: ingest corrections, the per-block Rx and Tx pipelines, the
+session and its block FIFO."""

@@ -1,10 +1,14 @@
-"""Session — the MainCore role (sdrsrv/maincore.{h,cpp}) for Rx device sets.
+"""Session — the MainCore role (sdrsrv/maincore.{h,cpp}) for Rx and Tx
+device sets.
 
 A Session owns device sets, presets and stored commands, and is driven by
 the REST API (api/server.py). A DeviceSet is one source and its channels; its
 acquisition runs in a worker thread that streams file or synthetic blocks
 through `RxPipeline` on the set's torch device (the DSPDeviceSourceEngine
-thread) and publishes per-channel reports and audio.
+thread) and publishes per-channel reports and audio. A TxDeviceSet is one
+sink and its modulator channels; its worker thread pulls AF blocks (tone,
+looped WAV, CW keyer) through `TxPipeline` (the DSPDeviceSinkEngine thread)
+and records the device-rate stream to a .sdriq.
 
 Live reconfiguration (webapiadaptersrv.cpp:1637 → nfmdemod.cpp
 applySettings; downchannelizer.cpp:111-189): dynamic knobs (an in-passband
@@ -26,10 +30,10 @@ session on purpose:
   the channels it was computed for, and only the part of a channel removed
   since is dropped.
 
-The Rx session on the one-pipeline worker is what the port carries. The Tx
-device set, the sharded worker, the daemon source, UDP/RTP egress, the data
-channels' host decoders and the reference-TLV preset format raise
-NotImplementedError naming their ROADMAP item.
+The Rx and Tx sessions on the one-pipeline worker are what the port
+carries. The sharded worker, the daemon source and sink, UDP/RTP egress and
+AF ingest, the data channels' host decoders and the reference-TLV preset
+format raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -54,10 +58,13 @@ from ..dsp import spectrum as dsp_spectrum
 from ..dsp.types import INPUT_FORMATS
 from ..io import sdriq, testsource
 from .engine import ChannelSpec, DeviceConfig, RxPipeline, fetch, resolve_device, unpack_outs
+from .fifo import BlockFifo
+from .tx import BLOCK_AF, TxChannelSpec, TxDeviceConfig, TxPipeline
 
 ITEM_SHARDED = ("ROADMAP.md queue 1, item 9 (parallel/ on several GPUs: the sharded "
                 "session worker with K1-TC)")
-ITEM_DAEMON = "ROADMAP.md queue 1, item 11 (daemonsource: io/daemon.py, io/fec.py)"
+ITEM_DAEMON = ("ROADMAP.md queue 1, item 11 (daemonsource and daemonsink: io/daemon.py, "
+               "io/fec.py)")
 ITEM_REFPRESET = "ROADMAP.md queue 1, item 13 (reference presets: runtime/refpreset.py)"
 
 #: the JAX session's device settings of parts not ported yet: name ->
@@ -69,11 +76,20 @@ _UNPORTED_SOURCE_FIELDS = {
     "daemon_address": ("127.0.0.1", ITEM_DAEMON), "daemon_port": (9090, ITEM_DAEMON),
 }
 
+#: the JAX Tx session's sink settings of parts not ported yet (the
+#: daemonsink), as above
+_UNPORTED_SINK_FIELDS = {
+    "daemon_address": ("127.0.0.1", ITEM_DAEMON), "daemon_port": (9094, ITEM_DAEMON),
+    "daemon_fec": (4, ITEM_DAEMON), "daemon_auto_fec": (False, ITEM_DAEMON),
+}
+
 #: available source kinds (the DeviceEnumerator role: software sources only)
 SOURCE_KINDS = {
     "testsource": "synthetic carrier generator (AM/FM/none + impairments)",
     "filesource": ".sdriq or raw cu8/cs8/cs16 capture replay (loops at EOF)",
 }
+#: available sink kinds
+SINK_KINDS = {"filesink": ".sdriq recording of the device-rate stream"}
 
 
 @dataclasses.dataclass(eq=False)
@@ -174,6 +190,22 @@ def check_source(settings: dict) -> dict:
             raise NotImplementedError(f"device setting {k}={settings[k]!r} is not ported "
                                       f"yet: {item}")
     return {k: v for k, v in settings.items() if k not in _UNPORTED_SOURCE_FIELDS}
+
+
+def check_sink(settings: dict) -> dict:
+    """The sink settings without the daemonsink's fields, which must hold
+    their inert defaults; the daemonsink raises NotImplementedError naming
+    its ROADMAP item."""
+    if settings.get("kind") == "daemonsink":
+        raise NotImplementedError(f"the daemon sink is not ported yet: {ITEM_DAEMON}")
+    if settings.get("kind", "filesink") not in SINK_KINDS:
+        raise ValueError(f"unknown sink kind {settings['kind']!r}; "
+                         f"available: {sorted(SINK_KINDS)}")
+    for k, (default, item) in _UNPORTED_SINK_FIELDS.items():
+        if k in settings and settings[k] != default:
+            raise NotImplementedError(f"sink setting {k}={settings[k]!r} is not ported "
+                                      f"yet: {item}")
+    return {k: v for k, v in settings.items() if k not in _UNPORTED_SINK_FIELDS}
 
 
 class DeviceSet:
@@ -549,6 +581,214 @@ def _to_i16_record(raw, input_format: str) -> np.ndarray:
                    -32768, 32767).astype(np.int16)
 
 
+@dataclasses.dataclass
+class SinkSettings:
+    """Tx device sink settings (the filesink role)."""
+
+    kind: str = "filesink"  # filesink (.sdriq)
+    file_path: str = ""  # the .sdriq the set records to (required to start)
+    sample_rate: float = 384000.0  # the DAC rate
+    center_frequency: float = 0.0
+    log2_interp: int = 0
+    throttle: bool = False  # pace blocks in real time (a DAC-clock stand-in)
+
+
+class TxDeviceSet:
+    """One sink and its modulator channels, run on one torch device — the
+    card unless the caller asks for the CPU. Its worker runs until stopped
+    (the DSPDeviceSinkEngine work loop): AF blocks from each channel's
+    source (a tone, `toneFrequency`; a looped 48 kHz WAV, `afFile`; the CW
+    keyer, `cwText`/`cwWpm`, keying the tone) go through `TxPipeline`, and
+    each int16 device block is read back one block behind and handed to a
+    BlockFifo, which a writer thread drains into the .sdriq. Channel and
+    sink settings apply at the next start, as in the JAX session."""
+
+    direction = "tx"
+
+    def __init__(self, index: int, device: torch.device | str = "cuda"):
+        self.index = index
+        self.device = resolve_device(device)
+        self.sink = SinkSettings()
+        self.channels: list[ChannelState] = []
+        self.running = False
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self.blocks_processed = 0  # device blocks read back and handed to the sink
+        self.error = ""
+        # wall seconds from the run's first queued block to its latest read
+        # back (host clock), and the seconds of signal read back over them
+        self.elapsed_s = 0.0
+        self.realtime_factor = 0.0
+        # the Rx display taps, which a Tx set does not have
+        self.spectrum = self.scope = self.histogram = None
+        self.waterfall: list = []
+
+    # -- configuration -------------------------------------------------------
+
+    def add_channel(self, uri: str, settings: dict | None = None) -> int:
+        settings = dict(settings or {})
+        registry.validate_settings(uri, settings, "tx")
+        offset = float(settings.pop("inputFrequencyOffset", 0.0))
+        self.channels.append(ChannelState(uri, offset, settings))
+        return len(self.channels) - 1
+
+    def remove_channel(self, index: int) -> None:
+        del self.channels[index]
+
+    def update_channel(self, index: int, settings: dict) -> None:
+        ch = self.channels[index]
+        registry.validate_settings(ch.uri, settings, "tx")
+        if "inputFrequencyOffset" in settings:
+            ch.frequency_offset = float(settings.pop("inputFrequencyOffset"))
+        ch.settings.update(settings)
+
+    def update_source(self, settings: dict) -> None:
+        """Typed sink-settings update (a wrong type is the API's 400)."""
+        for k, v in coerce_settings(self.sink, check_sink(settings)).items():
+            setattr(self.sink, k, v)
+
+    # -- the worker ----------------------------------------------------------
+
+    def start(self) -> None:
+        if self.running:
+            return
+        if self._thread is not None:
+            self._thread.join()  # a worker that outlived stop()'s wait
+        self._stop.clear()
+        self.error = ""
+        self.elapsed_s = self.realtime_factor = 0.0
+        self.running = True  # before the thread: a fast failure leaves it False
+        self._thread = threading.Thread(target=self._work, daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=60.0)
+            if self._thread.is_alive():
+                return  # still finishing a block; its finally clears running
+            self._thread = None
+        self.running = False
+
+    def _af_sources(self) -> tuple[list[TxChannelSpec], Callable]:
+        """The pipeline's channel specs and af(b, c, count), each channel's
+        AF source: a looped WAV (afFile; its channels averaged, played at
+        48 kHz), else its tone (toneFrequency, default 1 kHz) keyed by the
+        CW keyer when cwText is set (the CWKeyer feeding Tx channels,
+        cwkeyer.h:141)."""
+        from ..channels.cwkeyer import CWConfig, CWKeyer
+
+        specs, tones, wavs, keyers = [], [], {}, {}
+        for i, ch in enumerate(self.channels):
+            st = ch.settings
+            tones.append(float(st.get("toneFrequency", 1000.0)))
+            if st.get("afFile"):
+                with wave.open(st["afFile"], "rb") as w:
+                    pcm = np.frombuffer(w.readframes(w.getnframes()), dtype=np.int16)
+                    wavs[i] = (pcm.reshape(-1, w.getnchannels()).mean(axis=1) / 32768.0
+                               ).astype(np.float32)
+            if st.get("cwText"):
+                keyers[i] = CWKeyer(str(st["cwText"]), CWConfig(
+                    wpm=float(st.get("cwWpm", 15.0)), sample_rate=48000.0), loop=True)
+            specs.append(TxChannelSpec(ch.uri, ch.frequency_offset, {
+                k: v for k, v in st.items() if k not in registry.SESSION_KEYS}))
+
+        def af(b: int, c: int, count: int) -> np.ndarray:
+            if c in wavs:
+                src = wavs[c]
+                return src[(b * count + np.arange(count)) % len(src)]
+            tt = (b * count + np.arange(count)) / 48000.0
+            tone = np.sin(2 * np.pi * tones[c] * tt).astype(np.float32)
+            return tone * keyers[c].next_block(count) if c in keyers else tone
+
+        return specs, af
+
+    def _work(self) -> None:
+        try:
+            self._work_sink()
+        except Exception as e:  # StError
+            self.error = f"{type(e).__name__}: {e}"
+        finally:
+            self.running = False
+
+    def _work_sink(self) -> None:
+        """The engine thread: build the pipeline and the sink, then queue
+        blocks until stopped, reading each back once the next is queued."""
+        if not self.channels:
+            raise ValueError("Tx device set has no channels — add a modulator channel "
+                             "before starting")
+        sink = self.sink
+        if not sink.file_path:
+            raise ValueError("the filesink needs file_path")
+        chans = list(self.channels)  # the pipeline's channels, in its order
+        specs, af = self._af_sources()
+        pipe = TxPipeline(TxDeviceConfig(sink.sample_rate, sink.log2_interp,
+                                         sink.center_frequency), specs, BLOCK_AF, self.device)
+        block_seconds = pipe.device_block / sink.sample_rate
+        writer = sdriq.SdriqWriter(sink.file_path, sample_rate=int(sink.sample_rate),
+                                   center_frequency=int(sink.center_frequency))
+        # the SampleSourceFifo role: the device blocks flow to a writer
+        # thread through a bounded FIFO, so compute, read-back and disk IO
+        # overlap, and a slow sink holds the producer back
+        fifo = BlockFifo(depth=8)
+        drain_error: list[Exception] = []
+
+        def drain() -> None:
+            try:
+                while (blk := fifo.get()) is not None:
+                    writer.write(blk)
+            except Exception as e:  # surfaced by the worker
+                drain_error.append(e)
+                fifo.close()
+
+        drain_thread = threading.Thread(target=drain, daemon=True)
+        drain_thread.start()
+        t_start, signal_s = None, 0.0
+
+        def hand_over(out: torch.Tensor) -> None:
+            nonlocal signal_s
+            if not fifo.put(fetch(out)):
+                raise RuntimeError(f"the filesink stopped: {drain_error[0]!r}"
+                                   if drain_error else "the filesink stopped")
+            for ch in chans:
+                ch.audio_samples += BLOCK_AF
+            self.blocks_processed += 1
+            signal_s += block_seconds
+            self.elapsed_s = time.perf_counter() - t_start
+            self.realtime_factor = signal_s / max(self.elapsed_s, 1e-9)
+
+        try:
+            state = pipe.init_state()
+            pending = None  # one behind: block b is read back once b+1 is queued
+            b = 0
+            while not self._stop.is_set():
+                t0 = time.perf_counter()
+                t_start = t0 if t_start is None else t_start
+                state, out = pipe.step(state, pipe.upload(
+                    [af(b, c, BLOCK_AF) for c in range(len(specs))]))
+                if pending is not None:
+                    hand_over(pending)
+                pending = out
+                b += 1
+                dt = time.perf_counter() - t0
+                if sink.throttle and dt < block_seconds:
+                    time.sleep(block_seconds - dt)
+            if pending is not None:
+                hand_over(pending)
+        finally:
+            fifo.close()
+            drain_thread.join(timeout=30.0)
+            writer.close()
+        if drain_error:
+            raise drain_error[0]
+
+
+def device_settings(ds: DeviceSet | TxDeviceSet) -> SourceSettings | SinkSettings:
+    """A device set's device settings: the source of an Rx set, the sink of
+    a Tx set."""
+    return ds.sink if ds.direction == "tx" else ds.source
+
+
 #: the preset document's schema: 1 had no "schema" key; 2 stamps it, and
 #: settings are sanitized against the current dataclasses on load
 PRESET_SCHEMA_VERSION = 2
@@ -603,7 +843,7 @@ class Session:
     def __init__(self, preset_path: str | None = None, preset_dir: str | None = None,
                  device: torch.device | str = "cuda"):
         self.device = resolve_device(device)
-        self.device_sets: list[DeviceSet] = []
+        self.device_sets: list[DeviceSet | TxDeviceSet] = []
         self.presets: dict[str, dict] = {}
         self.commands: dict[str, dict] = {}
         self.start_time = time.time()
@@ -629,12 +869,11 @@ class Session:
             with open(self.preset_path, "w") as f:
                 json.dump(self.presets, f, indent=1)
 
-    def add_device_set(self, direction: str = "rx") -> DeviceSet:
-        if direction == "tx":
-            raise NotImplementedError(f"Tx device sets are not ported yet: {registry.ITEM_TX}")
-        if direction != "rx":
+    def add_device_set(self, direction: str = "rx") -> DeviceSet | TxDeviceSet:
+        if direction not in ("rx", "tx"):
             raise ValueError(f"direction must be rx or tx, got {direction!r}")
-        ds = DeviceSet(len(self.device_sets), self.device)
+        cls = TxDeviceSet if direction == "tx" else DeviceSet
+        ds = cls(len(self.device_sets), self.device)
         self.device_sets.append(ds)
         return ds
 
@@ -695,14 +934,14 @@ class Session:
         }
 
     @staticmethod
-    def _device_set_summary(ds: DeviceSet) -> dict:
+    def _device_set_summary(ds: DeviceSet | TxDeviceSet) -> dict:
         return {
             "index": ds.index,
             "state": "error" if ds.error else ("running" if ds.running else "idle"),
             "error": ds.error,
             "realtimeFactor": round(ds.realtime_factor, 2),
             "direction": ds.direction,
-            "source": dataclasses.asdict(ds.source),
+            "source": dataclasses.asdict(device_settings(ds)),
             "channelcount": len(ds.channels),
             "channels": [
                 {"index": i, "uri": ch.uri, "inputFrequencyOffset": ch.frequency_offset}
@@ -726,7 +965,7 @@ class Session:
         for ds in self.device_sets:
             with_channels.append({
                 "direction": ds.direction,
-                "source": dataclasses.asdict(ds.source),
+                "source": dataclasses.asdict(device_settings(ds)),
                 "channels": [
                     # a copy: the live dict would let later PATCHes rewrite it
                     {"uri": ch.uri, "inputFrequencyOffset": ch.frequency_offset,
@@ -738,33 +977,39 @@ class Session:
 
     def load_preset(self, group: str, name: str) -> None:
         """Replace the device sets with the preset's. The whole preset is
-        checked first, so one that names a part not ported yet (a Tx set, a
-        sharded or daemon source, an unported channel kind) raises and
-        leaves the running instance as it was."""
+        checked first, so one that names a part not ported yet (a sharded
+        or daemon source, a daemon sink, an unported channel kind or key)
+        raises and leaves the running instance as it was."""
         preset = migrate_preset(self.presets[f"{group}/{name}"])
         plan = []
         for entry in preset["deviceSets"]:
-            if entry.get("direction", "rx") == "tx":
-                raise NotImplementedError(f"Tx device sets are not ported yet: {registry.ITEM_TX}")
-            source = SourceSettings(**_known_fields(SourceSettings, check_source(entry["source"])))
+            direction = entry.get("direction", "rx")
+            if direction == "tx":
+                device = SinkSettings(**_known_fields(SinkSettings, check_sink(entry["source"])))
+            else:
+                device = SourceSettings(**_known_fields(SourceSettings,
+                                                        check_source(entry["source"])))
             channels = []
             for ch in entry["channels"]:
-                registry.check_kind(ch["uri"])
+                registry.check_kind(ch["uri"], direction)
                 # settings renamed or removed since the preset was saved drop
                 # (API PUTs stay strict)
                 allowed = set(registry.settings_schema(ch["uri"])) | registry.SESSION_KEYS
                 allowed |= set(registry.UNPORTED_KEYS)  # kept, so they raise below
                 settings = {k: v for k, v in ch["settings"].items() if k in allowed}
                 settings["inputFrequencyOffset"] = ch["inputFrequencyOffset"]
-                registry.validate_settings(ch["uri"], settings)
+                registry.validate_settings(ch["uri"], settings, direction)
                 channels.append((ch["uri"], settings))
-            plan.append((source, channels))
+            plan.append((direction, device, channels))
         for ds in self.device_sets:
             ds.stop()
         self.device_sets = []
-        for source, channels in plan:
-            ds = self.add_device_set("rx")
-            ds.source = source
+        for direction, device, channels in plan:
+            ds = self.add_device_set(direction)
+            if direction == "tx":
+                ds.sink = device
+            else:
+                ds.source = device
             for uri, settings in channels:
                 ds.add_channel(uri, settings)
 

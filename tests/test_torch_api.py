@@ -1,5 +1,5 @@
 """The port's REST server (`sdrangel_tpu_torch/api/server.py`) driven over HTTP
-on a CPU session: the Rx cases of tests/test_api.py and
+on a CPU session: the Rx and Tx cases of tests/test_api.py and the cases of
 tests/test_live_settings.py, the route ↔ document checks of
 tests/test_openapi.py, and the 501 of every part not ported yet.
 
@@ -192,12 +192,19 @@ def test_channels_listing_and_schema(api):
     code, body = _req(base, "/sdrangel/channels")
     assert code == 200
     by_uri = {c["uri"]: c for c in body["channels"]}
-    assert set(by_uri) == {NFM, "sdrangel.channel.amdemod", "sdrangel.channel.ssbdemod",
-                           "sdrangel.channel.wfmdemod"}
+    assert {u for u, c in by_uri.items() if c["direction"] == "rx"} == {
+        NFM, "sdrangel.channel.amdemod", "sdrangel.channel.ssbdemod", "sdrangel.channel.wfmdemod"}
+    assert {u for u, c in by_uri.items() if c["direction"] == "tx"} == {
+        f"sdrangel.channeltx.mod{k}" for k in ("nfm", "am", "ssb", "wfm")}
+    assert body["channelcount"] == 8
     nfm = by_uri[NFM]["settings"]
     assert nfm["fm_deviation"] == {"type": "float", "default": 5000.0}
     assert "squelch_db" in nfm and "channel_rate" not in nfm
-    assert body["sessionKeys"] == ["audioFile", "inputFrequencyOffset"]
+    modnfm = by_uri["sdrangel.channeltx.modnfm"]["settings"]
+    assert modnfm["af_filter"] == {"type": "str", "default": "nfm_ref"}
+    assert "block_af" not in modnfm and "input_offset" not in modnfm
+    assert body["sessionKeys"] == ["afFile", "audioFile", "cwText", "cwWpm",
+                                   "inputFrequencyOffset", "toneFrequency"]
     code, body = _req(base, "/sdrangel/devices")
     assert {d["kind"] for d in body["devices"]} == {"testsource", "filesource"}
 
@@ -489,8 +496,14 @@ def test_api_bearer_token():
 # -- parts not ported yet: 501 with the ROADMAP item -------------------------------------
 
 _LEFT_OUT = {
-    "tx_devicesets": ("/sdrangel/devicesets", "POST", {"direction": "tx"}, "item 7"),
-    "tx_query": ("/sdrangel/deviceset?tx=1", "POST", None, "item 7"),
+    "daemonsink": ("/sdrangel/config", "PUT", {"deviceSets": [
+        {"direction": "tx", "source": {"kind": "daemonsink"}, "channels": []}]}, "item 11"),
+    "afUdp": ("/sdrangel/config", "PUT", {"deviceSets": [
+        {"direction": "tx", "source": {}, "channels": [
+            {"uri": "sdrangel.channeltx.modnfm", "inputFrequencyOffset": 0.0,
+             "settings": {"afUdp": "127.0.0.1:9999"}}]}]}, "item 12"),
+    "modatv": ("/sdrangel/deviceset/0/channel", "POST",
+               {"channelType": "sdrangel.channeltx.modatv"}, "item 6"),
     "sharded": ("/sdrangel/deviceset/0/device/settings", "PATCH", {"sharded": True}, "item 9"),
     "mesh": ("/sdrangel/deviceset/0/device/settings", "PATCH", {"mesh_time": 4}, "item 9"),
     "daemonsource": ("/sdrangel/deviceset/0/device", "PUT", {"hwType": "daemonsource"},
@@ -524,6 +537,101 @@ def test_left_out_parts_answer_501(api, tmp_path, case):
     assert code == 501, reply
     assert f"ROADMAP.md queue 1, {item}" in reply["message"]
     assert len(session.device_sets) == 1 and len(session.device_sets[0].channels) == 1
+
+
+# -- Tx device sets (tests/test_api.py:192, :356, :1016, :1268) ----------------------------
+
+NFM_MOD = "sdrangel.channeltx.modnfm"
+
+
+def _run_tx_set(base, session, index, n_blocks):
+    code, _ = _req(base, f"/sdrangel/deviceset/{index}/device/run", "POST")
+    assert code == 200
+    _poll(lambda: _req(base, f"/sdrangel/deviceset/{index}/device/report")[1][
+        "blocksProcessed"] >= n_blocks)
+    code, body = _req(base, f"/sdrangel/deviceset/{index}/device/run", "DELETE")
+    assert code == 200 and body["state"] == "idle"
+    return _wait_idle(session, index)
+
+
+def test_tx_device_set_flow(api, tmp_path):
+    """A Tx set over HTTP: the NFM modulator at +30 kHz records a .sdriq
+    whose carrier sits at the offset; the device report is the sink's."""
+    base, session = api
+    code, body = _req(base, "/sdrangel/devicesets", "POST", {"direction": "tx"})
+    assert code == 201 and body == {"index": 0, "direction": "tx"}
+    out_path = str(tmp_path / "tx.sdriq")
+    code, body = _req(base, "/sdrangel/deviceset/0/device/settings", "PATCH",
+                      {"file_path": out_path, "sample_rate": 192000.0})
+    assert code == 200 and body["file_path"] == out_path and body["kind"] == "filesink"
+    assert _req(base, "/sdrangel/deviceset/0/device/settings")[1]["sample_rate"] == 192000.0
+    code, _ = _req(base, "/sdrangel/deviceset/0/channel", "POST",
+                   {"channelType": NFM_MOD, "inputFrequencyOffset": 30000.0,
+                    "toneFrequency": 800.0})
+    assert code == 201
+    _run_tx_set(base, session, 0, 3)
+    code, report = _req(base, "/sdrangel/deviceset/0/device/report")
+    assert report["state"] == "idle" and report["sampleRate"] == 192000.0
+    assert report["blocksProcessed"] >= 3 and report["realtimeFactor"] > 0
+    code, channel = _req(base, "/sdrangel/deviceset/0/channel/0/report")
+    assert channel["audioSamples"] == 4096 * report["blocksProcessed"]
+    info = sdriq.read_header(out_path)
+    assert info.sample_rate == 192000
+    _, mm = sdriq.open_mmap(out_path)
+    iq = sdriq.to_complex64(sdriq.read_block(mm, 0, min(info.n_samples, 1 << 16), wrap=False))
+    spec = np.abs(np.fft.fft(iq[4096:] * np.hanning(len(iq) - 4096)))
+    freqs = np.fft.fftfreq(len(iq) - 4096, 1.0 / 192000.0)
+    assert abs(freqs[spec.argmax()] - 30000.0) < 6000.0
+
+
+def test_preset_with_tx_set(api):
+    """Presets keep mixed Rx and Tx sets, direction-aware."""
+    base, _ = api
+    _req(base, "/sdrangel/devicesets", "POST", {})
+    _req(base, "/sdrangel/devicesets", "POST", {"direction": "tx"})
+    _req(base, "/sdrangel/deviceset/1/device/settings", "PATCH", {"log2_interp": 2})
+    _req(base, "/sdrangel/deviceset/1/channel", "POST",
+         {"channelType": "sdrangel.channeltx.modam", "inputFrequencyOffset": 12000.0})
+    assert _req(base, "/sdrangel/preset", "POST", {"groupName": "g", "name": "tx"})[0] == 200
+    _req(base, "/sdrangel/devicesets", "DELETE")
+    _req(base, "/sdrangel/devicesets", "DELETE")
+    assert _req(base, "/sdrangel/preset/load", "POST", {"groupName": "g", "name": "tx"})[0] == 200
+    code, body = _req(base, "/sdrangel")
+    sets = body["devicesetlist"]["deviceSets"]
+    assert [d["direction"] for d in sets] == ["rx", "tx"]
+    assert sets[1]["channels"][0]["inputFrequencyOffset"] == 12000.0
+    assert sets[1]["source"]["log2_interp"] == 2
+
+
+def test_singular_deviceset_tx_query(api):
+    base, session = api
+    code, body = _req(base, "/sdrangel/deviceset?tx=1", "POST")
+    assert code == 201 and body["direction"] == "tx"
+    code, body = _req(base, "/sdrangel/deviceset/0")
+    assert body["direction"] == "tx" and body["source"]["kind"] == "filesink"
+    code, body = _req(base, "/sdrangel/deviceset/0/device", "PUT", {"hwType": "daemonsink"})
+    assert code == 501 and "ROADMAP.md queue 1, item 11" in body["message"]
+    code, body = _req(base, "/sdrangel/deviceset", "DELETE")
+    assert code == 200 and body["devicesetcount"] == 0
+
+
+def test_tx_session_keys_stripped_and_empty_tx_refuses(api):
+    """A Tx set without channels fails its run with a clear message; a
+    session key on a modulator is accepted and harmless; the Rx audio
+    endpoint on a Tx set is a 400; an Rx kind on a Tx set a 404."""
+    base, session = api
+    _req(base, "/sdrangel/devicesets", "POST", {"direction": "tx"})
+    _req(base, "/sdrangel/deviceset/0/device/run", "POST")
+    rep = _poll(lambda: (r := _req(base, "/sdrangel/deviceset/0")[1])["error"] and r)
+    assert "no channels" in rep["error"]
+    _req(base, "/sdrangel/deviceset/0/device/run", "DELETE")
+    code, _ = _req(base, "/sdrangel/deviceset/0/channel", "POST",
+                   {"channelType": NFM_MOD, "audioFile": "unused.wav"})
+    assert code == 201
+    code, body = _req(base, "/sdrangel/deviceset/0/channel/0/audio")
+    assert code == 400 and "tx" in body["message"]
+    code, _ = _req(base, "/sdrangel/deviceset/0/channel", "POST", {"channelType": NFM})
+    assert code == 404
 
 
 # -- presets, config, commands ------------------------------------------------------------

@@ -31,9 +31,15 @@ from sdrangel_tpu_torch.io import testsource as psrc
 from sdrangel_tpu_torch.io import wav as pwav
 
 
-@pytest.mark.parametrize("order", [48, 64])
+@pytest.mark.parametrize("order", [48, 64, 96])
 def test_hb_taps_equal(order):
     np.testing.assert_array_equal(phb.hb_taps(order), jhb.hb_taps(order))
+
+
+def test_hb_orders_equal():
+    assert (phb.DECIMATORS_ORDER, phb.DOWNCHANNELIZER_ORDER, phb.UPCHANNELIZER_ORDER,
+            phb.INTERPOLATORS_ORDERS) == (jhb.DECIMATORS_ORDER, jhb.DOWNCHANNELIZER_ORDER,
+                                          jhb.UPCHANNELIZER_ORDER, jhb.INTERPOLATORS_ORDERS)
 
 
 @pytest.mark.parametrize("log2", [1, 2, 3, 4, 5, 6])

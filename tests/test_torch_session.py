@@ -297,21 +297,31 @@ def test_generation_bump_drops_only_a_removed_channel(monkeypatch):
     assert removed.audio_samples == 0 and removed.audio == []
 
 
+def _tx_preset(s, source, channels=()):
+    s.presets["g/tx"] = {"schema": 2, "deviceSets": [
+        {"direction": "tx", "source": source, "channels": list(channels)}]}
+    s.load_preset("g", "tx")
+
+
 @pytest.mark.parametrize("case", [
-    "tx_set", "sharded", "daemonsource", "audioUdp", "audioRtp", "udpAddress",
-    "reference_export", "tlv_import", "data_channel", "tx_preset",
+    "sharded", "daemonsource", "audioUdp", "audioRtp", "udpAddress",
+    "reference_export", "tlv_import", "data_channel", "daemonsink", "afUdp", "modatv",
 ])
 def test_left_out_parts_raise_with_their_roadmap_item(tmp_path, case):
     s = psession.Session(device=CPU, preset_dir=str(tmp_path))
     ds = s.add_device_set()
     item = {
-        "tx_set": "item 7", "sharded": "item 9", "daemonsource": "item 11",
+        "sharded": "item 9", "daemonsource": "item 11",
         "audioUdp": "item 12", "audioRtp": "item 12", "udpAddress": "item 12",
         "reference_export": "item 13", "tlv_import": "item 13", "data_channel": "item 6",
-        "tx_preset": "item 7",
+        "daemonsink": "item 11", "afUdp": "item 12", "modatv": "item 6",
     }[case]
     actions = {
-        "tx_set": lambda: s.add_device_set("tx"),
+        "daemonsink": lambda: _tx_preset(s, {"kind": "daemonsink"}),
+        "afUdp": lambda: _tx_preset(s, {}, [{
+            "uri": "sdrangel.channeltx.modnfm", "inputFrequencyOffset": 0.0,
+            "settings": {"afUdp": "127.0.0.1:9999"}}]),
+        "modatv": lambda: ds.add_channel("sdrangel.channeltx.modatv"),
         "sharded": lambda: ds.update_source({"sharded": True}),
         "daemonsource": lambda: ds.update_source({"kind": "daemonsource"}),
         "audioUdp": lambda: ds.add_channel(NFM, {"audioUdp": "127.0.0.1:9999"}),
@@ -322,9 +332,6 @@ def test_left_out_parts_raise_with_their_roadmap_item(tmp_path, case):
         "tlv_import": lambda: ((tmp_path / "ref.b64").write_text("AAAAAAE="),
                                s.import_preset_file("ref.b64")),
         "data_channel": lambda: ds.add_channel("sdrangel.channel.demoddatv", {}),
-        "tx_preset": lambda: (s.presets.__setitem__("g/tx", {
-            "schema": 2, "deviceSets": [{"direction": "tx", "source": {}, "channels": []}]}),
-            s.load_preset("g", "tx")),
     }
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
         actions[case]()
