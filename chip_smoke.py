@@ -6,10 +6,12 @@ on one CUDA card.
 Phases (each prints its own line; every number carries the card's name and
 power limit as nvidia-smi reports them):
   0. device and precision: the card, its power limit, the TF32 flags;
-  1. build: K1 (kernels/csrc/flat_decimate.cu) and K1-TC
-     (kernels/csrc/flat_decimate_tc.cu) with nvcc for sm_90a; ptxas's
-     registers and spills (a spill of any variant of either kernel fails),
-     each kernel's shared memory per block and resident blocks per SM;
+  1. build: K1 (kernels/csrc/flat_decimate.cu), K1-TC
+     (kernels/csrc/flat_decimate_tc.cu) and K-PLL (kernels/csrc/pll_scan.cu)
+     with nvcc for sm_90a; ptxas's registers and spills (a spill of any
+     variant of any of them fails), K1's and K1-TC's shared memory per block
+     and resident blocks per SM, K-PLL's critical path per step from
+     cuobjdump -sass;
   2. K1 against its plain twin on the card, the block and its tail as two
      tensors: i16 real legs, f32 real legs and f32 complex legs (inf and
      sup) at ÷4/÷16/÷64 on the 10,240,000-sample product block; each
@@ -73,6 +75,33 @@ power limit as nvidia-smi reports them):
          on cuda, NFM, 9.6 MS/s ×64, a filesink), stopped after 20 blocks
          by polling blocksProcessed: the .sdriq header and sample count,
          the set idle with no error, its samples equal to (a)'s.
+  9. the NFM CTCSS and AF squelch, sync-AM and broadcast-FM slice (K-PLL,
+     kernels/csrc/pll_scan.cu, the per-sample loops of dsp/phaselock.py):
+     (a) K-PLL against its plain loop on the card: all three entry points at
+         16 × 4,096 samples, pll_run and ref_pll_run at 16 × 49,152 against
+         the plain loop on the CPU (dB over the block and the end phase's
+         error); each entry point's time by CUDA events at 16 × 49,152 and
+         pll_run's at the main path's 1 × 49,152, beside its bound (bytes
+         or operations) and its latency bound: T × the cycles of one step's
+         critical path, read from cuobjdump -sass (`sass_chain_cycles`);
+     (b) sync AM on the product path: 10 MS/s i16 ÷64, AM at +20 kHz (1 kHz
+         at 80 % depth), `sync_am` with USB and then DSB, 6 blocks of
+         10,240,000: K1 and K-PLL once per block, the tone above 25 dB, ≥ 80
+         dB against the CPU pipeline on the first 2 blocks;
+     (c) NFM CTCSS and the delta squelch: the port's Tx NFM with a 88.5 Hz
+         CTCSS tone at 9.6 MS/s ×64 (noise added to the capture), decoded at
+         ÷64 over 3 blocks of 13,107,200 by one pipeline of four channels:
+         ctcss_index 8 open with the tone above 25 dB, ctcss_index 9 silent
+         after the first block, the delta squelch open on the carrier and
+         shut on a noise-only channel; K1 once per block;
+     (d) broadcast FM: 10 MS/s i16 ÷32, a stereo MPX (L 1 kHz, R silent, a
+         10 % pilot, 75 kHz deviation), 6 blocks of 10,240,000: K1 once per
+         block, the left tone above 25 dB, the right 20 dB under it, the
+         pilot level above its lock level, ≥ 80 dB against the CPU pipeline
+         on 2 blocks;
+     (e) broadcast FM over HTTP: (d)'s blocks as a .sdriq played by a device
+         set of the server on a cuda Session: the WAV's left channel equals
+         RxPipeline.run's.
 Then a JSON line of the kernels, and last the ok line. Any failed check
 raises: the script then exits non-zero and prints no ok line. It needs a
 card; without one it exits non-zero at once.
@@ -104,6 +133,7 @@ from sdrangel_tpu_torch.io import sdriq, testsource, wav
 from sdrangel_tpu_torch.kernels import build
 from sdrangel_tpu_torch.kernels import decimator as kdec
 from sdrangel_tpu_torch.kernels import flat_decimate as k1_kernel
+from sdrangel_tpu_torch.kernels import pll_scan
 from sdrangel_tpu_torch.kernels.flat_decimate import flat_decimate, flat_decimate_reference
 from sdrangel_tpu_torch.kernels.flat_decimate_tc import (
     RATIOS,
@@ -119,7 +149,9 @@ from sdrangel_tpu_torch.profile_product import (
     chainsharded_offsets,
     receiver_pipeline,
 )
+from sdrangel_tpu_torch.channels import demod_bfm
 from sdrangel_tpu_torch.dsp import interpolators as interp
+from sdrangel_tpu_torch.dsp import phaselock
 from sdrangel_tpu_torch.runtime.engine import ChannelSpec, DeviceConfig, RxPipeline, fetch
 from sdrangel_tpu_torch.runtime.session import Session
 from sdrangel_tpu_torch.runtime.tx import TxChannelSpec, TxDeviceConfig, TxPipeline
@@ -230,6 +262,8 @@ def ptxas_summary(report: str) -> list[str]:
                         f"{'complex' if v.group(3) == '1' else 'real'}>")
             elif k := re.search(r"\d(flat_decimate(?:_tc)?_kernel)I(.+?)EE+v", mangled):
                 name = f"{k.group(1)}<{k.group(2)}>"
+            elif k := re.search(r"\d((?:ref_|pilot_)?pll_kernel)E", mangled):
+                name = k.group(1)
             else:
                 name = mangled
             spill = ""
@@ -1037,6 +1071,495 @@ def phase_tx(dev: torch.device, tag: str) -> int:
     return loop_launches
 
 
+# -- phase 9: NFM CTCSS and the AF squelch, sync AM, broadcast FM; K-PLL ------
+
+AM = "sdrangel.channel.amdemod"
+BFM = "sdrangel.channel.bfm"
+SLICE_BLOCK = 10_240_000  # the device block of sync AM (÷64) and BFM (÷32) at 10 MS/s
+KPLL_CHANNELS, KPLL_SHORT, KPLL_LONG = 16, 4096, 49_152  # 49,152: one audio block
+KPLL_ENTRIES = ("pll_run", "ref_pll_run", "pilot_pll_run")  # pll_scan's wrappers
+#: operations per step, counting each add, multiply, divide, compare-select
+#: and each transcendental (sincos, atan2) as one: a floor for the bound
+KPLL_OPS = {"pll_run": 15, "ref_pll_run": 22, "pilot_pll_run": 24}
+#: the lock level of BFM's pilot: half the 10 % pilot's analytic magnitude
+#: (0.1 of the 75 kHz deviation, the demod's unit)
+PILOT_LOCK_LEVEL = 0.05
+DEP_LATENCY = 4  # cycles between dependent fixed-latency instructions (CC 7.0+)
+
+
+def reset_counts() -> None:
+    flat_decimate.launches = flat_decimate_tc.launches = 0
+    for name in KPLL_ENTRIES:
+        getattr(pll_scan, name).launches = 0
+
+
+def kpll_launches() -> int:
+    return sum(getattr(pll_scan, name).launches for name in KPLL_ENTRIES)
+
+
+def _sass_kernel(sass: str, kernel: str) -> list[tuple[int, str]]:
+    """(address, instruction) of one kernel in cuobjdump -sass output."""
+    out, on = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            on = kernel in line
+        elif on and (m := re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)):
+            out.append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+def _sass_regs(op: str) -> list[str]:
+    """The registers an operand reads or names (Rn.64 is Rn and Rn+1; an
+    address [Rn.64+x] reads its base)."""
+    op = op.replace("|", "").replace(".reuse", "").strip().lstrip("-!~")
+    if m := re.fullmatch(r"(U?R)(\d+)((?:\.\w+)*)", op):
+        regs = [f"{m.group(1)}{m.group(2)}"]
+        if ".64" in m.group(3):
+            regs.append(f"{m.group(1)}{int(m.group(2)) + 1}")
+        return regs
+    if re.fullmatch(r"U?P\d", op):
+        return [op]
+    if m := re.search(r"\[(U?R\d+)", op):
+        return [m.group(1)]
+    return []
+
+
+def sass_chain_cycles(sass: str, kernel: str, unroll: int) -> tuple[float, int]:
+    """The critical path of one step of a K-PLL kernel, in cycles, read from
+    its SASS. The hot loop (the widest backward branch; `unroll` steps) is
+    walked in address order keeping each register's ready time: DEP_LATENCY
+    cycles per dependent instruction (the floor of Hopper's fixed-latency
+    pipes; MUFU, conversions and FRND take longer), loads, moves and
+    constants ready at once. A path through the slow paths of the math
+    (a call, local memory, an inner loop: sincosf's large-argument
+    reduction, fmodf's long division, the division's slow path) is
+    dropped; where the other paths merge, the later ready time is kept, so
+    the special-value shortcuts (a zero or an infinite argument) do not
+    shorten it. Returns (the loop-carried registers' latest ready time ÷
+    unroll, instructions in the loop)."""
+    ins = _sass_kernel(sass, kernel)
+    target = lambda text: int(re.search(r"0x([0-9a-f]+)\s*$", text).group(1), 16)
+    back = [(a, target(t)) for a, t in ins if re.search(r"\bBRA\b", t) and target(t) < a]
+    end, head = max(back, key=lambda b: b[0] - b[1])
+    inner = [(t, a) for a, t in back if head < t and a < end]
+    slow = lambda a, text: (any(lo <= a <= hi for lo, hi in inner)
+                            or re.match(r"(@!?U?P\d\s+)?(CALL|LDL|STL)\b", text))
+    free = ("LDG", "LDC", "ULDC", "S2R", "S2UR", "CS2R", "MOV", "UMOV")
+    no_data = ("BSSY", "BSYNC", "NOP", "EXIT", "RET", "WARPSYNC", "STG", "STS")
+    pending, state, written, live_in, count = {}, {}, set(), set(), 0
+    for a, text in ins:
+        if not head <= a <= end:
+            continue
+        incoming = ([state] if state is not None else []) + pending.pop(a, [])
+        if not incoming or slow(a, text):
+            state = None  # unreachable, or a slow path: this path ends here
+            continue
+        state = {r: max(st.get(r, 0) for st in incoming) for r in set().union(*incoming)}
+        guard = None
+        if m := re.match(r"@!?(U?P\d)\s+(.*)", text):
+            guard, text = m.group(1), m.group(2)
+        opcode, _, rest = text.partition(" ")
+        ops = [o for o in rest.split(",") if o.strip()]
+        base = opcode.split(".")[0]
+        if base == "BRA":
+            if a == end:
+                break
+            if a < target(text) <= end:
+                pending.setdefault(target(text), []).append(dict(state))
+            if guard is None and len(ops) <= 1:
+                state = None
+            continue
+        if base in no_data:
+            continue
+        count += 1
+        dests, i = [], 0
+        while i < len(ops) and re.fullmatch(r"\s*U?P(\d|T)\s*", ops[i]):
+            dests.append(ops[i].strip())
+            i += 1
+        pred_only = "SETP" in opcode or base == "FCHK"  # they write predicates only
+        if i < len(ops) and not pred_only and "[" not in ops[i] and _sass_regs(ops[i]):
+            dests += _sass_regs(ops[i])
+            i += 1
+            while i < len(ops) and re.fullmatch(r"\s*U?P\d\s*", ops[i]):
+                dests.append(ops[i].strip())
+                i += 1
+        srcs = [r for o in ops[i:] for r in _sass_regs(o)] + ([guard] if guard else [])
+        live_in.update(r for r in srcs if r not in written)
+        written.update(dests)
+        ready = max([state.get(r, 0) for r in srcs] or [0])
+        ready += 0 if (base in free or opcode.startswith("IMAD.MOV")) else DEP_LATENCY
+        for d in dests:
+            if d not in ("RZ", "PT", "URZ", "UPT"):
+                state[d] = max(state.get(d, 0), ready) if guard else ready
+    carried = max((state.get(r, 0) for r in live_in & written), default=0)
+    return carried / unroll, count
+
+
+def kpll_sass(so_path: str) -> dict:
+    """Each K-PLL kernel's per-step critical path from cuobjdump -sass of
+    the built library: name -> (cycles per step, instructions in its loop)."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", so_path], capture_output=True, text=True,
+                          check=True).stdout
+    return {name: sass_chain_cycles(sass, f"{len(kernel)}{kernel}", 8) for name, kernel in (
+        ("pll_run", "pll_kernel"), ("ref_pll_run", "ref_pll_kernel"),
+        ("pilot_pll_run", "pilot_pll_kernel"))}
+
+
+def sm_clock_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True).stdout
+    return float(out.strip().splitlines()[torch.cuda.current_device()])
+
+
+def pll_input(rng, channels: int, size: int, real: bool) -> np.ndarray:
+    """AM carriers a few Hz off at 48 kHz (80 % depth, noise), or a 192 kHz
+    MPX with a 10 % 19 kHz pilot, one row per channel."""
+    if real:
+        tt = np.arange(size) / 192_000.0
+        phi = rng.uniform(-np.pi, np.pi, (channels, 1))
+        x = (0.1 * np.cos(2 * np.pi * 19_000.0 * tt + phi) + 0.4 * np.sin(2 * np.pi * 1e3 * tt)
+             + 0.01 * rng.standard_normal((channels, size)))
+        return x.astype(np.float32)
+    tt = np.arange(size) / 48_000.0
+    f = rng.uniform(-40.0, 40.0, (channels, 1))
+    phi = rng.uniform(-np.pi, np.pi, (channels, 1))
+    x = (1 + 0.8 * np.sin(2 * np.pi * 1e3 * tt)) * np.exp(1j * (2 * np.pi * f * tt + phi))
+    x = x + 0.05 * (rng.standard_normal((channels, size)) + 1j * rng.standard_normal(
+        (channels, size)))
+    return x.astype(np.complex64)
+
+
+def _wrap(a) -> np.ndarray:
+    return np.angle(np.exp(1j * np.asarray(a, np.float64)))
+
+
+#: entry point -> (plain loop, its arguments, state maker, real input)
+KPLL = {
+    "pll_run": (phaselock.pll_plain, phaselock.pll_gains(48_000.0), phaselock.make_pll, False),
+    "ref_pll_run": (phaselock.ref_pll_plain, (phaselock.ref_pll_coeffs(),),
+                    phaselock.make_ref_pll, False),
+    "pilot_pll_run": (phaselock.pilot_pll_plain,
+                      (phaselock.pilot_pll_coeffs(19_000.0, 192_000.0),),
+                      lambda dev, shape: phaselock.make_pilot_pll(19_000.0, 192_000.0, dev,
+                                                                  shape), True),
+}
+
+
+def kpll_bound(name: str, channels: int, size: int) -> tuple[float, str]:
+    """(ms, what bounds it): the input read and the output written once over
+    HBM against KPLL_OPS per step over the FP32 peak."""
+    per = 4 if name == "pilot_pll_run" else 8
+    t_bytes = channels * size * 2 * per / HBM_BPS
+    t_ops = channels * size * KPLL_OPS[name] / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def phase_kpll(dev: torch.device, tag: str, sass: dict, clock_mhz: float) -> dict:
+    """K-PLL against its plain loop, timed beside its bound and latency bound."""
+    rng = np.random.default_rng(909)
+    cpu = torch.device("cpu")
+    out = {}
+    for name, (plain, args, make, real) in KPLL.items():
+        wrapper = getattr(pll_scan, name)
+        err = {}
+        for size, plain_dev in ((KPLL_SHORT, dev), (KPLL_LONG, cpu)):
+            if size == KPLL_LONG and real:
+                continue  # the pilot loop: 16 × 4,096 on the card only
+            x = pll_input(rng, KPLL_CHANNELS, size, real)
+            state0 = torch.stack(list(make(cpu, (KPLL_CHANNELS,))))
+            st_k = state0.to(dev, copy=True)  # the kernel updates it in place
+            y_k = wrapper(torch.from_numpy(x).to(dev), st_k, *args)
+            torch.cuda.synchronize()
+            y_p, st_p = plain(torch.from_numpy(x).to(plain_dev), state0.to(plain_dev), *args)
+            y_k, st_k, y_p, st_p = (v.cpu().numpy() for v in (y_k, st_k, y_p, st_p))
+            if real:  # pre-update phases in [0, 2π)
+                e = float(np.abs(_wrap(y_k - y_p)).max())
+                end = float(np.abs(_wrap(st_k[0] - st_p[0])).max())
+                check(e <= 2e-3 and end <= 2e-3, f"{name}: phases {e:.2e}, end {end:.2e} rad")
+                db = None
+            else:
+                e = float(np.abs(y_k - y_p).max())
+                db = agreement_db(y_p.view(np.float32), y_k.view(np.float32))
+                phase_row = 3 if name == "ref_pll_run" else 0
+                end = float(np.abs(_wrap(st_k[phase_row] - st_p[phase_row])).max())
+                limit = (1e-4, 1e-4) if size == KPLL_SHORT else (1e-3, 1e-3)
+                check(e <= limit[0] and end <= limit[1],
+                      f"{name} at {size}: carrier {e:.2e}, end phase {end:.2e} rad")
+            err[size] = (e, db, end)
+            print(f"phase 9a k-pll {name} {KPLL_CHANNELS}x{size} vs plain on {plain_dev.type}: "
+                  f"max abs {e:.3e}" + (f", {db:.2f} dB over the block" if db else "")
+                  + f", end phase {end:.3e} rad [{tag}]", flush=True)
+        x_long = torch.from_numpy(pll_input(rng, KPLL_CHANNELS, KPLL_LONG, real)).to(dev)
+        st = torch.stack(list(make(dev, (KPLL_CHANNELS,)))).contiguous()
+        ms16 = time_ms(lambda: wrapper(x_long, st, *args))
+        x_one = x_long[:1].contiguous()
+        st1 = st[:, :1].contiguous()
+        ms1 = time_ms(lambda: wrapper(x_one, st1, *args))
+        # the plain loop (~20 launches a sample): pll_run's at the main
+        # path's shape, the others' over the first 4,096 samples
+        plain_size = KPLL_LONG if name == "pll_run" else KPLL_SHORT
+        x_plain = x_one[:, :plain_size].contiguous()
+        plain_ms = time_ms(lambda: plain(x_plain, st1, *args), iters=1, warmup=0)
+        cycles, n_ins = sass[name]
+        latency_ms = KPLL_LONG * cycles / (clock_mhz * 1e3)
+        bound_ms, bound_by = kpll_bound(name, 1, KPLL_LONG)
+        out[name] = {"ms": ms1, "ms_16ch": ms16, "plain_ms": plain_ms,
+                     "plain_samples": plain_size, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "latency_bound_ms": latency_ms,
+                     "chain_cycles_per_step": cycles, "loop_instructions": n_ins,
+                     "cycles_per_step": ms1 * clock_mhz * 1e3 / KPLL_LONG,
+                     "max_abs_err": max(v[0] for v in err.values()), "errors": err}
+        print(f"phase 9a k-pll {name} time: 1x{KPLL_LONG} (the main path's shape) "
+              f"{ms1:.4f} ms, {KPLL_CHANNELS}x{KPLL_LONG} {ms16:.4f} ms (CUDA events, 20 "
+              f"launches after 3 warm-up); plain loop on the card 1x{plain_size} {plain_ms:.1f} "
+              f"ms (one call); bound {bound_ms:.6f} ms by {bound_by}; latency bound from the "
+              f"SASS {cycles:.1f} cycles per step ({n_ins} instructions in the {8}-step loop) "
+              f"= {latency_ms:.4f} ms at {clock_mhz:.0f} MHz; measured "
+              f"{out[name]['cycles_per_step']:.1f} cycles per step, the latency bound "
+              f"{100 * latency_ms / ms1:.1f} % of the measured time [{tag}]", flush=True)
+    return out
+
+
+def _sync_am_pipe(dev, settings: dict) -> RxPipeline:
+    return RxPipeline(DeviceConfig(PRODUCT_RATE, log2_decim=6),
+                      [ChannelSpec(AM, 20_000.0, {"sync_am": True, **settings})], dev)
+
+
+def phase_sync_am(dev: torch.device, tag: str) -> dict:
+    """Sync AM on the product path, K1 and K-PLL once per block."""
+    n_blocks, n_cpu = 6, 2
+    src = testsource.TestSourceConfig(sample_rate=PRODUCT_RATE, modulation="am", am_depth=0.8,
+                                      carrier_freq=20_000.0, amplitude=0.4)
+    t0 = time.perf_counter()
+    blocks = [testsource.to_iq_int16(testsource.generate(src, SLICE_BLOCK,
+                                                         start_sample=b * SLICE_BLOCK))
+              for b in range(n_blocks)]
+    print(f"phase 9b sync am: generated {n_blocks} blocks of {SLICE_BLOCK} i16 samples in "
+          f"{time.perf_counter() - t0:.2f} s (set-up, not timed) [{tag}]", flush=True)
+    out = {}
+    for mode, settings in (("usb", {}), ("dsb", {"sync_dsb": True})):
+        pipe = _sync_am_pipe(dev, settings)
+        check(pipe.device_block == SLICE_BLOCK and pipe.fused_ingest,
+              f"sync am: device block {pipe.device_block}")
+        list(pipe.run(lambda b, n: blocks[b], 2))  # warm-up: cuFFT plans, the library
+        reset_counts()
+        audio, elapsed = run_product(pipe, blocks)
+        k1, kp, pll = flat_decimate.launches, kpll_launches(), pll_scan.pll_run.launches
+        per_entry = {name: getattr(pll_scan, name).launches for name in KPLL_ENTRIES}
+        check(k1 == n_blocks and pll == n_blocks and kp == n_blocks,
+              f"sync am {mode}: K1 {k1}, K-PLL {kp} (pll_run {pll}) launches for {n_blocks} blocks")
+        per_block = pipe.demod_cfgs[0].resampler_plan.block_out
+        check(audio.shape == (n_blocks * per_block,) and bool(np.isfinite(audio).all()),
+              f"sync am {mode}: audio {audio.shape}")
+        snr = tone_snr(audio[len(audio) // 2:].astype(np.float64), 1000.0, 48_000.0)
+        check(snr > 25.0, f"sync am {mode}: tone SNR {snr:.1f} dB")
+        t0 = time.perf_counter()
+        cpu_audio = np.concatenate([o["channels"][0]["audio"] for _, o in _sync_am_pipe(
+            "cpu", settings).run(lambda b, n: blocks[b], n_cpu)])
+        cpu_s = time.perf_counter() - t0
+        agree = agreement_db(cpu_audio, audio[:n_cpu * per_block])
+        check(agree >= 80.0, f"sync am {mode}: card vs CPU pipeline {agree:.1f} dB")
+        signal_s = n_blocks * SLICE_BLOCK / PRODUCT_RATE
+        out[mode] = {"k1": k1, "kpll": kp, "per_entry": per_entry,
+                     "ms_per_block": elapsed / n_blocks * 1e3,
+                     "rtf": signal_s / elapsed, "snr": snr, "cpu_db": agree}
+        print(f"phase 9b sync am {mode}: 10 MS/s /64 AM +20 kHz, {n_blocks} blocks in "
+              f"{elapsed:.4f} s = {elapsed / n_blocks * 1e3:.3f} ms/block, real-time factor "
+              f"{signal_s / elapsed:.2f}; K1 launches {k1}, K-PLL {kp} ("
+              + ", ".join(f"{k} {v}" for k, v in out[mode]["per_entry"].items())
+              + f"); tone SNR {snr:.2f} dB; "
+              f"card vs CPU pipeline on {n_cpu} blocks {agree:.2f} dB (CPU run {cpu_s:.1f} s) "
+              f"[{tag}]", flush=True)
+    return out
+
+
+def phase_ctcss(dev: torch.device, tag: str) -> int:
+    """NFM with CTCSS and the AF squelch on a Tx NFM capture carrying 88.5 Hz."""
+    n_rx = 3
+    n_tx = -(-n_rx * TX_RX_BLOCK // TX_BLOCK)
+    tx = TxPipeline(TxDeviceConfig(TX_RATE, 6), [TxChannelSpec(
+        NFM_MOD, 20_000.0, {"ctcss_on": True, "ctcss_freq": 88.5})], device=dev)
+    t0 = time.perf_counter()
+    capture = np.concatenate(list(tx.run(tone_af((1000.0,)), n_tx)))
+
+    def noisy(b: int, count: int) -> np.ndarray:  # 300 LSB rms, seeded per block
+        g = np.random.default_rng(919 + b).standard_normal((count, 2), dtype=np.float32)
+        return np.clip(capture[b * count:(b + 1) * count] + 300.0 * g, -32768, 32767
+                       ).astype(np.int16)
+
+    blocks = [noisy(b, TX_RX_BLOCK) for b in range(n_rx)]  # made before the timed run
+    print(f"phase 9c ctcss: {n_tx} Tx blocks (NFM +20 kHz, CTCSS 88.5 Hz) with noise of 300 "
+          f"LSB rms added, in {time.perf_counter() - t0:.2f} s (set-up) [{tag}]", flush=True)
+    chans = [ChannelSpec(NFM, 20_000.0, {"ctcss_on": True, "ctcss_index": 8, "squelch_db": -60.0}),
+             ChannelSpec(NFM, 20_000.0, {"ctcss_on": True, "ctcss_index": 9, "squelch_db": -60.0}),
+             ChannelSpec(NFM, 20_000.0, {"delta_squelch": True, "squelch_db": -15.0}),
+             ChannelSpec(NFM, -40_000.0, {"delta_squelch": True, "squelch_db": -15.0})]
+    rx = RxPipeline(DeviceConfig(TX_RATE, log2_decim=6), chans, dev)
+    check(rx.device_block == TX_RX_BLOCK, f"ctcss: Rx block {rx.device_block}")
+    list(rx.run(lambda b, n: blocks[b], 1))  # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [o["channels"] for _, o in rx.run(lambda b, n: blocks[b], n_rx)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    k1 = flat_decimate.launches
+    check(k1 == n_rx and kpll_launches() == 0, f"ctcss: K1 {k1} launches for {n_rx} blocks")
+    audio = [np.concatenate([o[c]["audio"] for o in outs]) for c in range(4)]
+    block_out = len(audio[0]) // n_rx
+    snr_open = tone_snr(audio[0][block_out:].astype(np.float64), 1000.0, 48_000.0)
+    snr_delta = tone_snr(audio[2][block_out:].astype(np.float64), 1000.0, 48_000.0)
+    wrong_peak = float(np.abs(audio[1][block_out:]).max())
+    noise_peak = float(np.abs(audio[3][block_out:]).max())
+    check(snr_open > 25.0, f"ctcss index 8: tone SNR {snr_open:.1f} dB")
+    check(wrong_peak == 0.0, f"ctcss index 9: audio peak {wrong_peak} after the first block")
+    check(snr_delta > 25.0, f"delta squelch on the carrier: tone SNR {snr_delta:.1f} dB")
+    check(noise_peak == 0.0, f"delta squelch on noise: audio peak {noise_peak}")
+    signal_s = n_rx * TX_RX_BLOCK / TX_RATE
+    print(f"phase 9c ctcss: 9.6 MS/s /64, 4 NFM channels, {n_rx} blocks in {elapsed:.4f} s = "
+          f"{elapsed / n_rx * 1e3:.3f} ms/block, real-time factor {signal_s / elapsed:.2f}; K1 "
+          f"launches {k1}; index 8 open, tone SNR {snr_open:.2f} dB; index 9 silent after the "
+          f"first block (peak {wrong_peak}); delta squelch open on the carrier (tone SNR "
+          f"{snr_delta:.2f} dB), shut on noise (peak {noise_peak}) [{tag}]", flush=True)
+    return k1
+
+
+def bfm_blocks(n_blocks: int, block: int, rate: float) -> list[np.ndarray]:
+    """A continuous stereo broadcast FM capture at the band centre: L a
+    1 kHz tone, R silent, a 10 % pilot sin θ with the 38 kHz subcarrier
+    sin 2θ, 75 kHz deviation, amplitude 0.5, int16 I/Q."""
+    out, phase = [], 0.0
+    for b in range(n_blocks):
+        tt = (b * block + np.arange(block)) / rate
+        left = np.sin(2 * np.pi * 1000.0 * tt)
+        mpx = 0.45 * left * (1.0 + np.sin(2 * np.pi * 38_000.0 * tt)) + 0.1 * np.sin(
+            2 * np.pi * 19_000.0 * tt)
+        ph = phase + 2 * np.pi * 75_000.0 * np.cumsum(mpx) / rate
+        phase = float(ph[-1])
+        out.append(testsource.to_iq_int16((0.5 * np.exp(1j * ph)).astype(np.complex64)))
+    return out
+
+
+def _bfm_pipe(dev) -> RxPipeline:
+    return RxPipeline(DeviceConfig(PRODUCT_RATE, log2_decim=5),
+                      [ChannelSpec(BFM, 0.0, {}, 180_000.0)], dev)
+
+
+def phase_bfm(dev: torch.device, tag: str) -> tuple[int, list[np.ndarray], np.ndarray]:
+    """Broadcast FM behind K1: stereo separation, the pilot, the CPU twin."""
+    n_blocks, n_cpu = 6, 2
+    t0 = time.perf_counter()
+    blocks = bfm_blocks(n_blocks, SLICE_BLOCK, PRODUCT_RATE)
+    print(f"phase 9d bfm: generated {n_blocks} blocks of {SLICE_BLOCK} i16 samples in "
+          f"{time.perf_counter() - t0:.2f} s (set-up) [{tag}]", flush=True)
+    pipe = _bfm_pipe(dev)
+    check(pipe.device_block == SLICE_BLOCK and pipe.fused_ingest and pipe.plans[0].signs == (),
+          f"bfm: device block {pipe.device_block}, plan {pipe.plans[0]}")
+    list(pipe.run(lambda b, n: blocks[b], 2))
+    reset_counts()
+    audio, elapsed = run_product(pipe, blocks)
+    k1 = flat_decimate.launches
+    check(k1 == n_blocks and kpll_launches() == 0, f"bfm: K1 {k1} launches for {n_blocks}")
+    per_block = pipe.demod_cfgs[0].mono_plan.block_out
+    check(audio.shape == (n_blocks * per_block, 2) and bool(np.isfinite(audio).all()),
+          f"bfm: audio {audio.shape}")
+    half = audio[len(audio) // 2:].astype(np.float64)
+    snr = tone_snr(half[:, 0], 1000.0, 48_000.0)
+    w = np.hanning(len(half))
+    tone_bin = np.abs(np.fft.rfftfreq(len(half), 1 / 48_000.0) - 1000.0) < 20.0
+    power = [np.sum(np.abs(np.fft.rfft(half[:, c] * w))[tone_bin] ** 2) for c in (0, 1)]
+    separation = float(10 * np.log10(power[0] / max(power[1], 1e-30)))
+    check(snr > 25.0, f"bfm: left tone SNR {snr:.1f} dB")
+    check(separation >= 20.0, f"bfm: right rejects the left tone by {separation:.1f} dB")
+    # the pilot level: BFMOutputs on K1's baseband, which is the channel (the
+    # plan has no stage); the engine keeps BFM's audio only
+    cfg = pipe.demod_cfgs[0]
+    state, dstate = demod_bfm.make_state(cfg, dev), dec.init_flat_state(5, dev, raw=True)
+    levels = []
+    for b in range(2):
+        dstate, bb = dec.decimate_flat_raw(dstate, torch.from_numpy(blocks[b]).to(dev), 5)
+        state, outs = demod_bfm.process(state, bb, cfg)
+        levels.append(float(outs.pilot_level))
+    check(levels[-1] > PILOT_LOCK_LEVEL, f"bfm: pilot level {levels[-1]:.4f}")
+    t0 = time.perf_counter()
+    cpu_audio = np.concatenate([o["channels"][0]["audio"] for _, o in _bfm_pipe("cpu").run(
+        lambda b, n: blocks[b], n_cpu)])
+    cpu_s = time.perf_counter() - t0
+    agree = agreement_db(cpu_audio, audio[:n_cpu * per_block])
+    check(agree >= 80.0, f"bfm: card vs CPU pipeline {agree:.1f} dB")
+    signal_s = n_blocks * SLICE_BLOCK / PRODUCT_RATE
+    print(f"phase 9d bfm: 10 MS/s /32 stereo, {n_blocks} blocks in {elapsed:.4f} s = "
+          f"{elapsed / n_blocks * 1e3:.3f} ms/block, real-time factor {signal_s / elapsed:.2f}; "
+          f"K1 launches {k1}; left tone SNR {snr:.2f} dB, right {separation:.2f} dB under it; "
+          f"pilot level {levels[-1]:.4f} (lock level {PILOT_LOCK_LEVEL}); card vs CPU on {n_cpu} "
+          f"blocks "
+          f"{agree:.2f} dB (CPU run {cpu_s:.1f} s) [{tag}]", flush=True)
+    return k1, blocks, audio
+
+
+def phase_bfm_server(blocks: list[np.ndarray], audio: np.ndarray, tag: str) -> int:
+    """(d)'s capture played by a device set over HTTP on the card."""
+    n_blocks = len(blocks)
+    ref_pcm = np.clip(audio * 32768.0, -32768, 32767).astype(np.int16)
+    session = Session(device=DEVICE)
+    srv = make_server(session, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, kwargs={"poll_interval": 0.05},
+                              daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "bfm.sdriq")
+            writer = sdriq.SdriqWriter(path, sample_rate=int(PRODUCT_RATE))
+            for b in blocks:
+                writer.write(b)
+            writer.close()
+            code, reply = http(base, "/sdrangel/devicesets", "POST")
+            check(code == 201, f"bfm server: add device set {reply}")
+            code, reply = http(base, "/sdrangel/deviceset/0/device/settings", "PATCH", {
+                "kind": "filesource", "file_path": path, "log2_decim": 5,
+                "run_blocks": n_blocks, "publish_every": 1})
+            check(code == 200, f"bfm server: device settings {reply}")
+            code, reply = http(base, "/sdrangel/deviceset/0/channel", "POST", {
+                "channelType": BFM, "inputFrequencyOffset": 0.0})
+            check(code == 201, f"bfm server: add channel {reply}")
+            reset_counts()
+            t0 = time.perf_counter()
+            code, reply = http(base, "/sdrangel/deviceset/0/device/run", "POST")
+            check(code == 200, f"bfm server: run {reply}")
+            while http(base, "/sdrangel/deviceset/0")[1]["state"] == "running":
+                check(time.perf_counter() - t0 < 300, "bfm server: still running after 300 s")
+                time.sleep(0.01)
+            launches = flat_decimate.launches
+            _, device = http(base, "/sdrangel/deviceset/0/device/report")
+            code, data = http(base, "/sdrangel/deviceset/0/channel/0/audio")
+            check(code == 200, f"bfm server: audio {data}")
+            _, entry = http(base, "/sdrangel/deviceset/0")
+            check(entry["state"] == "idle" and not entry["error"],
+                  f"bfm server: {entry['state']} {entry['error']!r}")
+    finally:
+        session.shutdown()
+        srv.shutdown()
+        srv.server_close()
+    with wave.open(io.BytesIO(data)) as w:
+        check(w.getnchannels() == 2 and w.getframerate() == 48_000,
+              f"bfm server: WAV {w.getnchannels()} channels at {w.getframerate()}")
+        pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16).reshape(-1, 2)
+    check(launches == n_blocks, f"bfm server: K1 launched {launches} times for {n_blocks}")
+    check(pcm.shape == ref_pcm.shape, f"bfm server: WAV {pcm.shape} vs {ref_pcm.shape}")
+    lsb = int(np.abs(pcm[:, 0].astype(np.int32) - ref_pcm[:, 0]).max())
+    agree = agreement_db(ref_pcm[:, 0], pcm[:, 0])
+    check(agree >= 80.0, f"bfm server: left channel vs RxPipeline.run {agree:.1f} dB")
+    print(f"phase 9e bfm server: {n_blocks} blocks over HTTP on a {DEVICE} Session, "
+          f"{device['elapsedSeconds'] / n_blocks * 1e3:.3f} ms/block (device report), "
+          f"real-time factor {device['realtimeFactor']:.2f}; K1 launches {launches}; the WAV's "
+          f"left channel against RxPipeline.run: max {lsb} LSB, {agree:.2f} dB [{tag}]",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -1060,11 +1583,20 @@ def main() -> int:
     print(f"phase 1 build: {os.path.relpath(info.path, REPO)}, nvcc {info.seconds:.2f} s; "
           f"ptxas: {'; '.join(regs) or 'n/a'} [{tag}]", flush=True)
     lib = build.library()
-    for kernel, count in (("flat_decimate_tc_kernel", len(RATIOS)),
-                          ("flat_decimate_kernel", 4 * len(RATIOS))):
-        lines = [line for line in regs if line.startswith(kernel + "<")]
+    for kernel, count in (("flat_decimate_tc_kernel<", len(RATIOS)),
+                          ("flat_decimate_kernel<", 4 * len(RATIOS)), ("pll_kernel:", 1),
+                          ("ref_pll_kernel:", 1), ("pilot_pll_kernel:", 1)):
+        lines = [line for line in regs if line.startswith(kernel)]
         check(len(lines) == count and all(" 0 bytes spill stores" in line for line in lines),
               f"{kernel} spills or is missing from the ptxas report: {lines}")
+    sass = kpll_sass(info.path)
+    clock_mhz = sm_clock_mhz()
+    print("phase 1 build: K-PLL's critical path per step from cuobjdump -sass (the longest "
+          "dependent chain through the 8-step loop outside the math's slow paths, 4 cycles "
+          "per dependent instruction): "
+          + ", ".join(f"{k} {c:.1f} cycles ({n} instructions in the loop)"
+                      for k, (c, n) in sass.items())
+          + f"; max SM clock {clock_mhz:.0f} MHz [{tag}]", flush=True)
     k1_occ = {}
     for k in (2, 4, 6):
         for name, dtype, fc_pos in K1_FORMS:
@@ -1087,6 +1619,11 @@ def main() -> int:
     phase_receivers(dev, tag)
     server_launches = phase_server(pipe, product_blocks, tag)
     tx_loopback_launches = phase_tx(dev, tag)
+    kpll = phase_kpll(dev, tag, sass, clock_mhz)
+    sync_am = phase_sync_am(dev, tag)
+    ctcss_launches = phase_ctcss(dev, tag)
+    bfm_launches, bfm_capture, bfm_audio = phase_bfm(dev, tag)
+    bfm_server_launches = phase_bfm_server(bfm_capture, bfm_audio, tag)
 
     print(tag, flush=True)
     print(json.dumps({"kernels": [{
@@ -1117,6 +1654,28 @@ def main() -> int:
         "bound_ms": tc["bound_ms"],
         "bound_by": tc["bound_by"],
         "library_ms": tc["library_ms"],
+    }, {
+        "name": "pll_scan",
+        "route": "cuda",
+        "source": "sdrangel_tpu_torch/kernels/csrc/pll_scan.cu",
+        "replaces": "sdrangel_tpu/dsp/phaselock.py:33",
+        "launches": sync_am["usb"]["kpll"],
+        "max_abs_err": max(v["max_abs_err"] for v in kpll.values()),
+        "ms": kpll["pll_run"]["ms"],
+        "plain_ms": kpll["pll_run"]["plain_ms"],
+        "bound_ms": kpll["pll_run"]["bound_ms"],
+        "bound_by": kpll["pll_run"]["bound_by"],
+        "library_ms": None,
+        "latency_bound_ms": kpll["pll_run"]["latency_bound_ms"],
+        "entries": {k: {"launches": sync_am["usb"]["per_entry"][k],
+                        **{f: v[f] for f in ("ms", "ms_16ch", "plain_ms", "plain_samples",
+                                             "bound_ms", "bound_by", "latency_bound_ms",
+                                             "chain_cycles_per_step", "cycles_per_step",
+                                             "max_abs_err")}}
+                    for k, v in kpll.items()},
+        "dsb_launches": sync_am["dsb"]["kpll"],
+        "slice_k1_launches": {"sync_am": sync_am["usb"]["k1"], "ctcss": ctcss_launches,
+                              "bfm": bfm_launches, "bfm_server": bfm_server_launches},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,16 @@ Examples:
   python -m sdrangel_tpu_torch demod --device cuda --in capture.sdriq \
       --log2-decim 2 --channel nfm:50000 --out audio.wav
 
+  # broadcast FM stereo to a 2-channel WAV; NFM behind a CTCSS tone gate;
+  # synchronous AM (--set applies a channel setting to every channel that
+  # has it)
+  python -m sdrangel_tpu_torch demod --in fm.sdriq --log2-decim 5 \
+      --channel bfm:0 --out stereo.wav
+  python -m sdrangel_tpu_torch demod --in capture.sdriq --log2-decim 6 \
+      --channel nfm:20000 --set ctcss_on=true --set ctcss_index=8 --out audio.wav
+  python -m sdrangel_tpu_torch demod --in capture.sdriq --log2-decim 6 \
+      --channel am:20000 --set sync_am=true --set sync_dsb=true --out audio.wav
+
   # inspect a capture
   python -m sdrangel_tpu_torch info --in capture.sdriq
 
@@ -35,6 +45,7 @@ _CHANNEL_URIS = {
     "am": "sdrangel.channel.amdemod",
     "ssb": "sdrangel.channel.ssbdemod",
     "wfm": "sdrangel.channel.wfmdemod",
+    "bfm": "sdrangel.channel.bfm",
 }
 
 
@@ -44,6 +55,31 @@ def _parse_channel(spec: str) -> tuple[str, float]:
         raise SystemExit(f"channel kind {kind!r} is not ported yet; ported: "
                          f"{sorted(_CHANNEL_URIS)}")
     return _CHANNEL_URIS[kind], float(rest) if rest else 0.0
+
+
+def _parse_settings(pairs: list[str], uris: list[str]) -> dict[str, dict]:
+    """--set KEY=VALUE pairs as per-channel settings: each key goes to every
+    channel whose kind has that field, its value parsed by the field's type
+    (bool as true/false/1/0)."""
+    from .channels.registry import settings_schema
+
+    out: dict[str, dict] = {uri: {} for uri in uris}
+    for pair in pairs:
+        key, sep, text = pair.partition("=")
+        if not sep:
+            raise SystemExit(f"--set {pair!r}: expected KEY=VALUE")
+        hits = [uri for uri in uris if key in settings_schema(uri)]
+        if not hits:
+            raise SystemExit(f"--set {key}: no channel here has that setting")
+        for uri in hits:
+            kind = settings_schema(uri)[key]["type"]
+            if kind == "bool":
+                if text.lower() not in ("true", "false", "1", "0"):
+                    raise SystemExit(f"--set {key}={text}: expected true or false")
+                out[uri][key] = text.lower() in ("true", "1")
+            else:
+                out[uri][key] = {"int": int, "float": float}.get(kind, str)(text)
+    return out
 
 
 def cmd_info(args) -> int:
@@ -61,17 +97,19 @@ def cmd_info(args) -> int:
 def cmd_demod(args) -> int:
     import torch
 
-    from .channels.registry import REGISTRY
+    from .channels.registry import REGISTRY, requested_rate
     from .io import sdriq, testsource, wav
     from .runtime.engine import ChannelSpec, DeviceConfig, RxPipeline
 
     parsed = [_parse_channel(c) for c in args.channel]
+    extra = _parse_settings(args.set, [uri for uri, _ in parsed])
 
     def settings(uri: str) -> dict:
         # --squelch goes to the kinds that have a squelch (SSB's is its AGC's)
-        if args.squelch is None or "squelch_db" not in REGISTRY[uri].dynamic_fields:
-            return {}
-        return {"squelch_db": args.squelch}
+        st = dict(extra[uri])
+        if args.squelch is not None and "squelch_db" in REGISTRY[uri].dynamic_fields:
+            st["squelch_db"] = args.squelch
+        return st
 
     if args.infile:
         info, mm = sdriq.open_mmap(args.infile)
@@ -105,7 +143,8 @@ def cmd_demod(args) -> int:
         input_format=input_format,
     )
     pipe = RxPipeline(
-        frontend, [ChannelSpec(uri, offset, settings(uri)) for uri, offset in parsed],
+        frontend, [ChannelSpec(uri, offset, settings(uri), requested_rate(uri, settings(uri)))
+                   for uri, offset in parsed],
         torch.device(args.device),
     )
     n_blocks = max(1, total // pipe.device_block)
@@ -122,16 +161,17 @@ def cmd_demod(args) -> int:
         for c in range(len(parsed)):
             audio_parts[c].append(outs["channels"][c]["audio"])
     elapsed = time.perf_counter() - t0
-    audio = np.concatenate(audio_parts[0], axis=-1)
+    # audio frames: (A,) mono, or (A, 2) stereo for broadcast FM
+    audio = np.concatenate(audio_parts[0], axis=0)
     wav.write_wav(args.out, audio, 48000)
     for c in range(1, len(parsed)):  # extra channels: suffixed files
         root, ext = args.out.rsplit(".", 1)
-        wav.write_wav(f"{root}.ch{c}.{ext}", np.concatenate(audio_parts[c], axis=-1), 48000)
+        wav.write_wav(f"{root}.ch{c}.{ext}", np.concatenate(audio_parts[c], axis=0), 48000)
     processed = n_blocks * pipe.device_block
     print(
         f"processed {processed} samples in {elapsed:.2f}s on {pipe.device} "
         f"({processed / elapsed / 1e6:.1f} MS/s, {processed / rate / elapsed:.1f}x real time); "
-        f"wrote {audio.shape[-1]} audio samples to {args.out}",
+        f"wrote {audio.shape[0]} audio frames to {args.out}",
         file=sys.stderr,
     )
     return 0
@@ -218,8 +258,12 @@ def main(argv=None) -> int:
     pd.add_argument("--log2-decim", type=int, default=0, choices=range(7))
     pd.add_argument("--fc-pos", default="cen", choices=["cen", "inf", "sup"])
     pd.add_argument("--channel", required=True, action="append",
-                    help="kind:offset_hz (nfm|am|ssb|wfm); repeatable")
+                    help="kind:offset_hz (nfm|am|ssb|wfm|bfm); repeatable")
     pd.add_argument("--squelch", type=float, default=None, help="squelch dB")
+    pd.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                    help="a channel setting (a field of its kind, e.g. ctcss_on=true, "
+                         "ctcss_index=8, delta_squelch=true, sync_am=true, sync_dsb=true, "
+                         "audio_stereo=false) for every channel that has it; repeatable")
     pd.add_argument("--dc-correction", action="store_true")
     pd.add_argument("--iq-correction", action="store_true")
     pd.add_argument("--out", required=True, help="output WAV path")

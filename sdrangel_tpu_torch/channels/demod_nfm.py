@@ -1,14 +1,13 @@
 """NFM demodulator (plugins/channelrx/demodnfm/nfmdemod.cpp:140-330).
 
 NCO mix by the channel offset → polyphase resample to the audio rate →
-phase discriminator → power squelch (32-sample moving average of magsq
-against the level) writing through the squelch-gate delay line → 301-tap
-audio bandpass (the reference's ring-walk response) → volume. One pure
-function (state, iq block) -> (state', audio block).
-
-The AF "delta" squelch and the CTCSS gate need the Goertzel detectors, which
-are not ported yet (ROADMAP.md, queue 1: goertzel/CTCSS); those settings
-raise NotImplementedError.
+phase discriminator → squelch, either the power squelch (32-sample moving
+average of magsq against the level) or the AF "delta" squelch (the 2-tone
+Goertzel over 32-sample frames of the demod), writing through the
+squelch-gate delay line → the optional CTCSS gate (300 Hz lowpass → ÷8 →
+the 32-tone Goertzel, one decision per block) → 301-tap audio bandpass (the
+reference's ring-walk response) → volume. One pure function (state, iq
+block) -> (state', audio block).
 """
 
 from __future__ import annotations
@@ -21,7 +20,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..dsp import firdesign, movingavg, nco, phasediscri, resampler, squelch
+from ..dsp import firdesign, goertzel, movingavg, nco, phasediscri, resampler, squelch
+
+
+_CTCSS_TAPS = 63  # the lowpass ahead of the CTCSS ÷8
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -41,12 +43,6 @@ class NFMConfig:
     audio_mute: bool = False
     block_in: int = 0  # input samples per block (0 -> auto from the resampler ratio)
     ref_atan2_approx: bool = False  # test-only: the reference's atan2 approximation
-
-    def __post_init__(self):
-        if self.delta_squelch or self.ctcss_on:
-            raise NotImplementedError(
-                "delta_squelch and ctcss_on need the Goertzel detectors, which wait "
-                "for the goertzel/CTCSS port (ROADMAP.md, queue 1)")
 
     @functools.cached_property
     def resampler_plan(self) -> resampler.ResamplerPlan:
@@ -75,6 +71,11 @@ class NFMConfig:
     def fm_scaling(self) -> float:
         return self.audio_rate / (2.0 * self.fm_deviation)  # deviation -> full scale
 
+    @functools.cached_property
+    def ctcss_lowpass_taps(self) -> np.ndarray:
+        """The 300 Hz lowpass ahead of the CTCSS ÷8 (nfmdemod.cpp m_lowpass)."""
+        return firdesign.lowpass(_CTCSS_TAPS, 300.0 / self.audio_rate)
+
 
 def _auto_block(in_rate: float, out_rate: float) -> int:
     """Smallest power-of-two multiple ≥ 4096 of the ratio's numerator p."""
@@ -89,8 +90,13 @@ class NFMState(NamedTuple):
     resamp: resampler.ResamplerState
     discri: phasediscri.DiscriminatorState
     mavg: movingavg.MovingAvgState
+    af_squelch: goertzel.AFSquelchState
     squelch: squelch.SquelchState
     bandpass: firdesign.FirState
+    ctcss_lp: firdesign.FirState
+
+
+_AF_FRAME = 32  # AF squelch frame (samples of 48 kHz audio)
 
 
 def make_state(cfg: NFMConfig, device: torch.device, batch_shape=()) -> NFMState:
@@ -100,14 +106,49 @@ def make_state(cfg: NFMConfig, device: torch.device, batch_shape=()) -> NFMState
         resamp=resampler.init_state(cfg.resampler_plan, device, batch_shape),
         discri=phasediscri.make_state(device, batch_shape),
         mavg=movingavg.make_state(32, device, batch_shape),  # nfmdemod.h m_movingAverage
+        af_squelch=goertzel.make_af_squelch(device, 32, 2, batch_shape),
         squelch=squelch.make_state(cfg.squelch_gate_samples, device, batch_shape),
         bandpass=firdesign.make_state(len(cfg.bandpass_taps), device, batch_shape),
+        ctcss_lp=firdesign.make_state(_CTCSS_TAPS, device, batch_shape),
     )
 
 
 @functools.lru_cache(maxsize=None)
-def _device_bandpass(cfg: NFMConfig, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(cfg.bandpass_taps).to(device)
+def _device_taps(cfg, name: str, device: torch.device) -> torch.Tensor:
+    """A config's host design (the cached property `name`) as a tensor on
+    `device`, uploaded once per config and device."""
+    return torch.from_numpy(np.asarray(getattr(cfg, name))).to(device)
+
+
+def _af_squelch_open(state: goertzel.AFSquelchState, demod: torch.Tensor, cfg: NFMConfig,
+                     squelch_db) -> tuple[goertzel.AFSquelchState, torch.Tensor]:
+    """The AF squelch's open condition per audio sample: one decision per
+    32-sample frame of the demod, the last frame's held over a ragged end."""
+    t = demod.shape[-1]
+    frames = demod[..., :t // _AF_FRAME * _AF_FRAME].reshape(*demod.shape[:-1], -1, _AF_FRAME)
+    af_state, open_frames = goertzel.af_squelch_run(
+        state, frames, cfg.audio_rate, threshold=10.0 ** (squelch_db / 10.0),
+        samples_attack=2, samples_decay=4)
+    open_cond = torch.repeat_interleave(open_frames, _AF_FRAME, dim=-1)
+    pad = t - open_cond.shape[-1]
+    if pad:
+        open_cond = torch.cat(
+            [open_cond, open_cond[..., -1:].expand(*open_cond.shape[:-1], pad)], dim=-1)
+    return af_state, open_cond
+
+
+def _ctcss_gate(state: firdesign.FirState, demod: torch.Tensor, cfg: NFMConfig
+                ) -> tuple[firdesign.FirState, torch.Tensor | None]:
+    """The CTCSS tone gate: 300 Hz lowpass, ÷8 (nfmdemod.cpp:240, 48 → 6
+    kHz), the 32-tone Goertzel over the block as one frame. Returns
+    (state', gate (..., 1) float32, or None with no tone selected)."""
+    lp_state, lp = firdesign.fir_apply(
+        state, demod, _device_taps(cfg, "ctcss_lowpass_taps", demod.device))
+    res = goertzel.ctcss_detect(lp[..., ::8][..., None, :], cfg.audio_rate / 8.0)
+    if cfg.ctcss_index <= 0:
+        return lp_state, None
+    tone_ok = res.detected[..., 0] & (res.tone_index[..., 0] == cfg.ctcss_index - 1)
+    return lp_state, tone_ok[..., None].to(torch.float32)
 
 
 def process(
@@ -129,15 +170,23 @@ def process(
     discri_state, demod, magsq = phasediscri.discriminator_delta(
         state.discri, ci, cfg.fm_scaling, approx=cfg.ref_atan2_approx)
     mavg_state, avg_magsq = movingavg.moving_average(state.mavg, magsq)
+    if cfg.delta_squelch:
+        af_state, open_cond = _af_squelch_open(state.af_squelch, demod, cfg, squelch_db)
+    else:
+        af_state, open_cond = state.af_squelch, avg_magsq >= 10.0 ** (squelch_db / 10.0)
     squelch_state, gated, _ = squelch.gate_block(
-        state.squelch, demod, avg_magsq >= 10.0 ** (squelch_db / 10.0),
-        cfg.squelch_gate_samples)
+        state.squelch, demod, open_cond, cfg.squelch_gate_samples)
+    lp_state = state.ctcss_lp
+    if cfg.ctcss_on:
+        lp_state, tone_gate = _ctcss_gate(state.ctcss_lp, demod, cfg)
+        if tone_gate is not None:
+            gated = gated * tone_gate
     bp_state, audio = firdesign.fir_apply(
-        state.bandpass, gated, _device_bandpass(cfg, x.device))
+        state.bandpass, gated, _device_taps(cfg, "bandpass_taps", x.device))
     vol = cfg.volume if volume is None else _per_channel(volume, x)
     audio = audio * (0.0 if cfg.audio_mute else vol)
-    return NFMState(nco_state, resamp_state, discri_state, mavg_state,
-                    squelch_state, bp_state), audio
+    return NFMState(nco_state, resamp_state, discri_state, mavg_state, af_state,
+                    squelch_state, bp_state, lp_state), audio
 
 
 def _per_channel(value, x: torch.Tensor):

@@ -1,6 +1,6 @@
 """Channel-type registry — the plugin-manager role (pluginmanager.{h,cpp}):
 channel kinds keyed by the reference's URIs. The port registers the NFM,
-AM, SSB and WFM receivers (REGISTRY) and the NFM, AM, SSB and WFM
+AM, SSB, WFM and broadcast FM receivers (REGISTRY) and the NFM, AM, SSB and WFM
 modulators of the Tx device sets (TX_KINDS; runtime/tx.py holds their
 modulate functions); the other channels wait (ROADMAP.md, queue 1), and
 naming one raises NotImplementedError with its queue item.
@@ -14,7 +14,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
-from . import demod_am, demod_nfm, demod_ssb, demod_wfm, modulators
+import math
+from fractions import Fraction
+
+from . import demod_am, demod_bfm, demod_nfm, demod_ssb, demod_wfm, modulators
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +37,9 @@ class ChannelKind:
     dynamic_fields: frozenset = frozenset()
     # (new_state, cfg, dyn) -> report meters from the channel's own state
     meters: Callable[[Any, Any, dict], dict] | None = None
+    # (channel_rate, settings) -> a factor the block must hold at the
+    # channel rate, for a demod whose own resamplers need it
+    block_factor: Callable[[float, dict], int] | None = None
 
 
 REGISTRY: dict[str, ChannelKind] = {}
@@ -70,7 +76,7 @@ ITEM_UDP_RTP = ("ROADMAP.md queue 1, item 12 (UDP/RTP egress and ingest: io/udp.
 #: the JAX package's channel kinds that the port does not carry yet
 UNPORTED_KINDS = {
     uri: ITEM_OTHER_RX for uri in (
-        "sdrangel.channel.bfm", "sdrangel.channel.chanalyzer",
+        "sdrangel.channel.chanalyzer",
         "sdrangel.channel.lorademod", "sdrangel.channel.dsddemod",
         "sdrangel.channel.demodatv", "sdrangel.channel.demoddatv",
         "sdrangel.channel.udpsrc", "sdrangel.channeltx.modatv")
@@ -93,6 +99,16 @@ def settings_schema(uri: str) -> dict[str, dict]:
         default = None if f.default is dataclasses.MISSING else f.default
         schema[f.name] = {"type": getattr(f.type, "__name__", str(f.type)), "default": default}
     return schema
+
+
+def requested_rate(uri: str, settings: dict) -> float:
+    """The bandwidth a channel asks of the channelizer (the reference's
+    demods ask through DSPConfigureChannelizer): the audio kinds the 48 kHz
+    class; broadcast FM its whole MPX (pilot, stereo and RDS up to 57 kHz
+    plus the deviation: rfBandwidth, 180 kHz by default in bfmdemod.cpp)."""
+    if uri == "sdrangel.channel.bfm":
+        return float(settings.get("rf_bandwidth", 180_000.0))
+    return 48_000.0
 
 
 def check_kind(uri: str, direction: str = "rx") -> None:
@@ -124,7 +140,7 @@ def validate_settings(uri: str, settings: dict, direction: str = "rx") -> None:
 def report_schema(uri: str) -> dict:
     """A kind's channel report (the role of the reference's per-plugin
     report DTOs): every ported kind is an audio kind with the standard
-    meters."""
+    meters (broadcast FM's audio frames are stereo)."""
     return {"type": "object", "properties": {
         "channelPowerDB": {"type": "number"},
         "squelch": {"type": "boolean"},
@@ -151,6 +167,29 @@ register(ChannelKind(
     "sdrangel.channel.wfmdemod", demod_wfm.WFMConfig, demod_wfm.make_state,
     demod_wfm.process, needs_fft_hop=True, dynamic_fields=_FULL_DYN,
     meters=demod_wfm.meters,
+))
+
+
+def _bfm_process_engine(state, x, cfg, **dyn):
+    """Broadcast FM in the engine: its audio (stereo frames); the RDS
+    baseband and the pilot level stay with demod_bfm.process's callers."""
+    state, outs = demod_bfm.process(state, x, cfg, **dyn)
+    return state, outs.audio
+
+
+def _bfm_block_factor(channel_rate: float, settings: dict) -> int:
+    """BFM's resamplers need the block to hold the mono (48 kHz) and RDS
+    (9500 Hz) rational numerators, and whole fft hops."""
+    p_mono = Fraction(channel_rate / 48_000.0).limit_denominator(1 << 20).numerator
+    p_rds = Fraction(channel_rate / (demod_bfm.RDS_SYMBOL_RATE * demod_bfm.RDS_SPS)
+                     ).limit_denominator(1 << 20).numerator
+    return math.lcm(p_mono, p_rds, 512)
+
+
+register(ChannelKind(
+    "sdrangel.channel.bfm", demod_bfm.BFMConfig, demod_bfm.make_state, _bfm_process_engine,
+    needs_fft_hop=True, dynamic_fields=_FULL_DYN, meters=demod_bfm.meters,
+    block_factor=_bfm_block_factor,
 ))
 
 

@@ -104,3 +104,39 @@ def mix_block(
     """x · e^{+iφ[n]} — the `c *= m_nco.nextIQ()` idiom (nfmdemod.cpp:153)."""
     state, iq = nco_block(state, increment, x.shape[-1])
     return state, x * iq
+
+
+# -- LUT parity mode: the reference's quantized oscillator, bit for bit ----
+
+TABLE_SIZE = 4096  # nco.h: the reference's cos table
+_LUT = np.cos(2.0 * np.pi * np.arange(TABLE_SIZE) / TABLE_SIZE).astype(np.float32)
+
+
+class NCOLutState(NamedTuple):
+    phase: torch.Tensor  # (...,) int64 in [0, TABLE_SIZE)
+
+
+def make_nco_lut(device: torch.device, batch_shape=(), phase0: int = 0) -> NCOLutState:
+    return NCOLutState(torch.full(batch_shape, phase0, dtype=torch.int64, device=device))
+
+
+def lut_increment(freq: float, sample_rate: float) -> int:
+    """Integer truncation as in NCO::setFreq (nco.cpp:48-52)."""
+    return int((freq * TABLE_SIZE) / sample_rate)
+
+
+def nco_lut_block(
+    state: NCOLutState, increment: int, length: int
+) -> tuple[NCOLutState, torch.Tensor]:
+    """The reference oscillator: it steps, then reads (nextPhase before the
+    table lookup, nco.h:45-55), cos from the 4096-entry table. The JAX
+    function's int32 increment·n wraps; TABLE_SIZE divides 2^32, so the
+    int64 product reduced mod TABLE_SIZE lands on the same table entries."""
+    dev = state.phase.device
+    n = torch.arange(1, length + 1, dtype=torch.int64, device=dev)
+    phases = torch.remainder(state.phase[..., None] + increment * n, TABLE_SIZE)
+    lut = torch.from_numpy(_LUT).to(dev)
+    re = lut[phases]
+    im = -lut[torch.remainder(phases + TABLE_SIZE // 4, TABLE_SIZE)]
+    new_phase = torch.remainder(state.phase + increment * length, TABLE_SIZE)
+    return NCOLutState(new_phase), torch.complex(re, im)

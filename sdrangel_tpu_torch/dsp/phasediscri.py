@@ -2,7 +2,8 @@
 :61-78): atan2 phase per sample, differentiated with ±2π wrap, so deviation
 in units of the sample rate maps to ±1, times fmScaling. The carry is the
 previous block's last sample; it starts at 1+0j, which pins the reference's
-uninitialized previous argument to 0."""
+uninitialized previous argument to 0. `discriminator_conj` is the plain
+phaseDiscriminator, atan2 of conj(prev)·cur, that broadcast FM uses."""
 
 from __future__ import annotations
 
@@ -59,3 +60,14 @@ def discriminator_delta(
     dev = torch.where(dev > 1.0, dev - 2.0, dev)
     magsq = x.real ** 2 + x.imag ** 2
     return DiscriminatorState(x[..., -1].clone()), dev * fm_scaling, magsq
+
+
+def discriminator_conj(
+    state: DiscriminatorState, x: torch.Tensor, fm_scaling: float
+) -> tuple[DiscriminatorState, torch.Tensor]:
+    """phaseDiscriminator (phasediscri.h): atan2(conj(prev)·cur)/π · fmScaling
+    over x (..., T) complex64. Returns (state', demod (..., T) float32)."""
+    prev = torch.cat([state.prev[..., None], x[..., :-1]], dim=-1)
+    d = torch.conj(prev) * x
+    out = torch.atan2(d.imag, d.real) / float(np.float32(np.pi))
+    return DiscriminatorState(x[..., -1].clone()), out * fm_scaling

@@ -309,8 +309,7 @@ def _state_structure(cfg: ShardedPipelineConfig, device: torch.device):
 def state_from_numpy(cfg: ShardedPipelineConfig, tree, carry, device: torch.device | str):
     """The JAX gear's (state, carry), fetched as numpy (e.g. with
     jax.tree.map(np.asarray, ...)), as this gear's. Fields are matched by
-    name; JAX fields the port does not carry (the NFM Goertzel and CTCSS
-    states) are dropped. The (2, H) float32 carry, which holds int16 samples
+    name. The (2, H) float32 carry, which holds int16 samples
     / 32768, becomes the (H, 2) int16 raw carry by an exact ×32768."""
     dev = resolve_device(device)
     state = _from_numpy(_state_structure(cfg, dev), tree)

@@ -139,6 +139,8 @@ class RxPipeline:
                 hop = _config_field(kind.config_cls, spec.settings, "fft_len") // 2
                 need = math.lcm(need, hop << k,
                                 (p * hop // math.gcd(frac.denominator, hop)) << k)
+            if kind.block_factor is not None:
+                need = math.lcm(need, kind.block_factor(plan.channel_rate, spec.settings) << k)
         block = need
         target = requested or (1 << 17)
         while block < target:
@@ -175,8 +177,9 @@ class RxPipeline:
     def state_from_numpy(self, tree: dict) -> dict:
         """The JAX RxPipeline's state (fetched as numpy, e.g. with
         jax.tree.map(np.asarray, state)) as this pipeline's state. Fields are
-        matched by name against `init_state()`; JAX fields the port does not
-        carry (the Goertzel states, AM's sync-mode state) are dropped. A complex64 flat tail
+        matched by name against `init_state()`, so every field the port's
+        states hold crosses over, sync AM's, the AF squelch's and broadcast
+        FM's included. A complex64 flat tail
         becomes the fused-ingest int16 raw tail (×32768, exact for values
         that came from int16)."""
         return _from_numpy(self.init_state(), tree)

@@ -356,7 +356,8 @@ class DeviceSet:
         specs = []
         for ch in self.channels:
             st = {k: v for k, v in ch.settings.items() if k not in registry.SESSION_KEYS}
-            specs.append(ChannelSpec(ch.uri, ch.frequency_offset, st))
+            specs.append(ChannelSpec(ch.uri, ch.frequency_offset, st,
+                                     requested_rate=registry.requested_rate(ch.uri, st)))
         pipe = RxPipeline(
             frontend, specs, self.device, block_size=1 << 16,
             spectrum_cfg=dsp_spectrum.SpectrumConfig(

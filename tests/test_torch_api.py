@@ -193,10 +193,11 @@ def test_channels_listing_and_schema(api):
     assert code == 200
     by_uri = {c["uri"]: c for c in body["channels"]}
     assert {u for u, c in by_uri.items() if c["direction"] == "rx"} == {
-        NFM, "sdrangel.channel.amdemod", "sdrangel.channel.ssbdemod", "sdrangel.channel.wfmdemod"}
+        NFM, "sdrangel.channel.amdemod", "sdrangel.channel.ssbdemod", "sdrangel.channel.wfmdemod",
+        "sdrangel.channel.bfm"}
     assert {u for u, c in by_uri.items() if c["direction"] == "tx"} == {
         f"sdrangel.channeltx.mod{k}" for k in ("nfm", "am", "ssb", "wfm")}
-    assert body["channelcount"] == 8
+    assert body["channelcount"] == 9
     nfm = by_uri[NFM]["settings"]
     assert nfm["fm_deviation"] == {"type": "float", "default": 5000.0}
     assert "squelch_db" in nfm and "channel_rate" not in nfm

@@ -36,6 +36,7 @@ from sdrangel_tpu_torch.dsp import phasediscri as pdis
 from sdrangel_tpu_torch.dsp import resampler as pres
 from sdrangel_tpu_torch.dsp import scanops as pscan
 from torch_port_util import CPU, load_golden, load_golden_iq, n, t
+from torch_port_util import real_best_lag as _real_best_lag
 
 ATOL = 2e-5
 
@@ -275,26 +276,23 @@ def test_receiver_bank_equals_single_channel_calls(kind):
         assert int(bank.nco.phase[c]) == int(singles[c].nco.phase)
 
 
-@pytest.mark.parametrize("field", ["sync_am", "ref_pll_parity"])
-def test_unported_am_sync_modes_raise(field):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pam.AMConfig(channel_rate=48_000.0, **{field: True})
-
-
 def test_am_state_carries_jax_fields_by_name():
-    """The port's AM state has JAX's names and shapes for the envelope
-    path's fields, so a JAX state crosses over by name; the sync-mode
-    fields, which no ported path reads, are the ones it leaves out."""
-    kw = dict(channel_rate=96_000.0, block_in=8192)
+    """The port's AM state has every field of JAX's AMState, in its order,
+    with JAX's shapes and dtypes leaf by leaf (the sync mode's with a
+    framing delay, so that field is not empty), so a JAX state crosses over
+    whole by name (the NCO wheel is int64 in the port, uint32 in JAX:
+    both integers)."""
+    kw = dict(channel_rate=96_000.0, block_in=8192, sync_frame_offset=148)
     js = jax.tree.map(np.asarray, jam.make_state(jam.AMConfig(**kw), batch_shape=(2,)))
     ps = pam.make_state(pam.AMConfig(**kw), CPU, batch_shape=(2,))
-    assert [f for f in js._fields if f in ps._fields] == list(ps._fields)
-    assert set(js._fields) - set(ps._fields) == {
-        "pll", "pll_fir", "ref_pll", "sync_delay", "sync_align", "fft", "agc"}
+    assert list(ps._fields) == list(js._fields)
     for f in ps._fields:
         jl, pl = jax.tree.leaves(getattr(js, f)), jax.tree.leaves(getattr(ps, f))
         assert [n(a).shape for a in pl] == [a.shape for a in jl], f
+        assert ([n(a).dtype.kind.replace("u", "i") for a in pl]
+                == [a.dtype.kind.replace("u", "i") for a in jl]), f
     np.testing.assert_array_equal(n(ps.vol_agc.window), js.vol_agc.window)
+    np.testing.assert_array_equal(n(ps.agc.count), js.agc.count)
 
 
 @pytest.mark.parametrize("kind,cached", [("ssb", "_device_filter"), ("wfm", "_device_rf_filter")])
@@ -322,18 +320,6 @@ def test_receiver_filter_is_uploaded_once(kind, cached):
 
 def _golden_x(name):
     return (load_golden_iq(name + "_input") / 32768.0).astype(np.complex64)
-
-
-def _real_best_lag(golden, ours, lags, skip):
-    """test_reference_golden.py's real-valued lag and scale fit."""
-    def fit(a, b):
-        m = min(len(a), len(b))
-        a, b = np.asarray(a[skip:m], float), np.asarray(b[skip:m], float)
-        s = np.dot(b, a) / max(np.dot(b, b), 1e-30)
-        err = a - s * b
-        return 10 * np.log10(max(np.dot(s * b, s * b), 1e-30) / max(np.dot(err, err), 1e-30)), s
-    return max(((lag, *fit(golden[max(0, lag):], ours[max(0, -lag):])) for lag in lags),
-               key=lambda r: r[1])
 
 
 def test_am_meets_reference_golden():

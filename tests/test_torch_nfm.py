@@ -208,13 +208,6 @@ def test_nfm_process_meets_reference_golden(name, rate, offset, approx, bound):
     assert snr > bound, f"{name}: snr {snr:.1f} dB (lag {lag}, scale {scale})"
 
 
-def test_unported_squelch_modes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pnfm.NFMConfig(channel_rate=48_000.0, ctcss_on=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pnfm.NFMConfig(channel_rate=48_000.0, delta_squelch=True)
-
-
 # offsets (Hz) for the f32 increment: negatives, offsets above fs/2, the
 # bank gear's residuals (bench.py:185-192) and tiny negatives whose f32
 # remainder rounds to 1.0 (JAX's uint32 conversion then saturates)

@@ -1,13 +1,15 @@
 """Print the port's and the JAX package's SNR on each golden of the AM, SSB,
-WFM and fftfilt slice and of the Tx slice (the device interpolators, the
-UpChannelizer, the resampler both ways, the NFM and WFM modulators), on the
-CPU, with the fits the tests use:
+WFM and fftfilt slice, of the Tx slice (the device interpolators, the
+UpChannelizer, the resampler both ways, the NFM and WFM modulators) and of
+the sync-AM / CTCSS / broadcast-FM slice (the NCO LUT, the CTCSS scene,
+amsync96, bfm384), on the CPU, with the fits the tests use:
 
     python tests/torch_golden_report.py
 
 Not a test: the bounds live in tests/test_torch_demods.py,
-tests/test_torch_fftfilt.py and tests/test_torch_tx.py; this prints where
-each side lands.
+tests/test_torch_fftfilt.py, tests/test_torch_tx.py,
+tests/test_torch_phaselock.py and tests/test_torch_receivers_ext.py; this
+prints where each side lands.
 """
 
 import os
@@ -22,6 +24,10 @@ import numpy as np  # noqa: E402
 import test_torch_demods as td  # noqa: E402
 import test_torch_tx as ttx  # noqa: E402
 from sdrangel_tpu.channels import demod_am as jam  # noqa: E402
+from sdrangel_tpu.channels import demod_bfm as jbfm  # noqa: E402
+from sdrangel_tpu.dsp import agc as jagc  # noqa: E402
+from sdrangel_tpu.dsp import goertzel as jgz  # noqa: E402
+from sdrangel_tpu.dsp import nco as jnco  # noqa: E402
 from sdrangel_tpu.channels import demod_ssb as jssb  # noqa: E402
 from sdrangel_tpu.channels import demod_wfm as jwfm  # noqa: E402
 from sdrangel_tpu.channels import modulators as jmods  # noqa: E402
@@ -29,8 +35,13 @@ from sdrangel_tpu.dsp import channelizer as jchan  # noqa: E402
 from sdrangel_tpu.dsp import fftfilt as jff  # noqa: E402
 from sdrangel_tpu.dsp import interpolators as jint  # noqa: E402
 from sdrangel_tpu.dsp import resampler as jres  # noqa: E402
+from sdrangel_tpu_torch.channels import demod_bfm as pbfm  # noqa: E402
+from sdrangel_tpu_torch.dsp import agc as pagc  # noqa: E402
 from sdrangel_tpu_torch.dsp import fftfilt as pff  # noqa: E402
-from torch_port_util import CPU, fit_snr, load_golden, load_golden_iq, n, t  # noqa: E402
+from sdrangel_tpu_torch.dsp import goertzel as pgz  # noqa: E402
+from sdrangel_tpu_torch.dsp import nco as pnco  # noqa: E402
+from torch_port_util import (  # noqa: E402
+    CPU, fit_snr, load_golden, load_golden_iq, n, real_best_lag, t)
 
 # name -> (JAX module, port module, config kwargs without block_in, output
 # scale, lags, skip), as test_reference_golden.py:647-838 runs each
@@ -149,7 +160,84 @@ def tx() -> None:
             print(f"{name:22s} {side:4s} {snr:8.3f} dB scale {abs(scale):.7f}")
 
 
+def _amsync_run(mod, make, arr, **extra):
+    flat = load_golden("amsync96_input")
+    x = ((flat[0::2] / 32768.0) + 1j * (flat[1::2] / 32768.0)).astype(np.complex64)
+    cfg = mod.AMConfig(channel_rate=96_000.0, input_offset=5000.0, rf_bandwidth=5000.0,
+                       squelch_db=-40.0, bandpass_enable=False, sync_am=True,
+                       block_in=len(x), **extra)
+    _, audio = mod.process(make(cfg), arr(x), cfg)
+    return np.asarray(audio) if mod is jam else n(audio)
+
+
+def sync_ctcss_bfm() -> None:
+    """The goldens of the sync-AM / CTCSS / broadcast-FM slice, both sides."""
+    for name, (freq, rate) in (("nco_m12000_48k", (-12000.0, 48000.0)),
+                               ("nco_1234p5_48k", (1234.5, 48000.0)),
+                               ("nco_100k_768k", (100000.0, 768000.0))):
+        g = load_golden_iq(name).astype(np.complex64)
+        _, jz = jnco.nco_lut_block(jnco.make_nco_lut(), jnco.lut_increment(freq, rate), len(g))
+        _, pz = pnco.nco_lut_block(pnco.make_nco_lut(CPU), pnco.lut_increment(freq, rate),
+                                   len(g))
+        for side, z in (("jax", np.asarray(jz)), ("port", n(pz))):
+            print(f"{name:22s} {side:4s} max |diff| {np.abs(z - g).max():.1e} "
+                  f"(bit-exact: {np.array_equal(z, g)})")
+    tt = np.arange(48000 * 2)
+    sig = 0.15 * np.sin(2 * np.pi * 88.5 * tt / 48000.0) + 0.5 * np.sin(2 * np.pi * 700.0 * tt
+                                                                         / 48000.0)
+    frames = sig[7::8].astype(np.float32)[:12_000].reshape(-1, 3000)
+    ref_hz = jgz.CTCSS_TONES[int(load_golden("ctcss_detected_idx")[-1])]
+    for side, idx in (("jax", np.asarray(jgz.ctcss_detect(jnp.asarray(frames), 6000.0)
+                                         .tone_index)),
+                      ("port", n(pgz.ctcss_detect(t(frames), 6000.0).tone_index))):
+        print(f"{'ctcss_detected_idx':22s} {side:4s} {jgz.CTCSS_TONES[int(idx[-1])]:.1f} Hz "
+              f"(reference {ref_hz:.1f} Hz, tone 88.5 Hz)")
+    g = load_golden("amsync96_audio").astype(float)
+    for label, extra, lags in (
+            ("amsync96", {}, range(300, 500, 2)),
+            ("amsync96 (full parity)", dict(ref_nco_quant=True, ref_pll_parity=True,
+                                            sync_frame_offset=148), range(-200, 200))):
+        for side, mod, make, arr in (
+                ("jax", jam, jam.make_state, jnp.asarray),
+                ("port", td.pam, lambda c: td.pam.make_state(c, CPU), t)):
+            lag, snr, s = real_best_lag(g, _amsync_run(mod, make, arr, **extra), lags, 20_000)
+            print(f"{label:22s} {side:4s} {snr:8.3f} dB lag {lag} scale {s:.6f}")
+    gm, gd = load_golden("amsync96_postmix"), load_golden("amsync96_demod")
+    fed = np.concatenate([np.zeros(148), gm[0::2] + 1j * gm[1::2]])
+    fed = fed[:len(fed) // 512 * 512].astype(np.complex64)
+    cfg = jam.AMConfig(channel_rate=96_000.0, sync_am=True, bandpass_enable=False)
+    for side, ff, ag, arr, make in (("jax", jff, jagc, jnp.asarray, lambda m, *a: m(*a)),
+                                    ("port", pff, pagc, t, lambda m, *a: m(*a, CPU))):
+        _, filt = ff.run_ssb(make(ff.make_state, cfg.sync_fft_len), arr(fed),
+                             arr(np.asarray(cfg.sync_filter)), usb=True, get_dc=False)
+        _, lev, _, _ = ag.mag_agc(make(ag.make_state, cfg.sync_agc_config), filt,
+                                  cfg.sync_agc_config)
+        dem = np.asarray(lev.real + lev.imag) * 4.0 if side == "jax" else n(
+            (lev.real + lev.imag) * 4.0)
+        lag, snr, s = real_best_lag(gd.astype(float), dem, range(-668, 382), 20_000)
+        print(f"{'amsync96 (tail)':22s} {side:4s} {snr:8.3f} dB lag {lag} scale {s:.6f}")
+    flat = load_golden("bfm384_input")
+    x = ((flat[0::2] / 32768.0) + 1j * (flat[1::2] / 32768.0)).astype(np.complex64)
+    x = x[:len(x) // 1536 * 1536]
+    gl2 = load_golden("bfm384_audio_lr").astype(float)
+    gsum = gl2[0::2] + gl2[1::2]
+    for side, mod, make, arr in (("jax", jbfm, jbfm.make_state, jnp.asarray),
+                                 ("port", pbfm, lambda c: pbfm.make_state(c, CPU), t)):
+        cfg = mod.BFMConfig(channel_rate=384_000.0, block_in=len(x))
+        _, out = mod.process(make(cfg), arr(x), cfg)
+        y = np.asarray(out.audio) if side == "jax" else n(out.audio)
+        lag, snr, _ = real_best_lag(gsum, (y[:, 0] + y[:, 1]).astype(float), range(-40, 41),
+                                    12_000)
+        w = np.hanning(16_384)
+        fr = np.fft.rfftfreq(16_384, 1 / 48_000)
+        sl = np.abs(np.fft.rfft(y[12_000:12_000 + 16_384, 0] * w))
+        sep = 20 * np.log10(sl[np.abs(fr - 1000) < 10].max() / sl[np.abs(fr - 2500) < 10].max())
+        print(f"{'bfm384 (mono sum)':22s} {side:4s} {snr:8.3f} dB lag {lag}; left "
+              f"separation {sep:.2f} dB")
+
+
 if __name__ == "__main__":
     receivers()
     fftfilt()
     tx()
+    sync_ctcss_bfm()

@@ -72,3 +72,17 @@ def t(a: np.ndarray) -> torch.Tensor:
 
 def n(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
+
+
+def real_best_lag(golden, ours, lags, skip: int):
+    """The lag of the best real least-squares scale fit of ours onto golden:
+    (lag, snr dB, scale), as test_reference_golden._real_best_lag."""
+    def fit(a, b):
+        m = min(len(a), len(b))
+        a, b = np.asarray(a[skip:m], float), np.asarray(b[skip:m], float)
+        s = np.dot(b, a) / max(np.dot(b, b), 1e-30)
+        err = a - s * b
+        return (10 * np.log10(max(np.dot(s * b, s * b), 1e-30) / max(np.dot(err, err), 1e-30)),
+                s)
+    return max(((lag, *fit(golden[max(0, lag):], ours[max(0, -lag):])) for lag in lags),
+               key=lambda r: r[1])
