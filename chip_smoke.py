@@ -10,8 +10,8 @@ power limit as nvidia-smi reports them):
      (kernels/csrc/flat_decimate_tc.cu) and K-PLL (kernels/csrc/pll_scan.cu)
      with nvcc for sm_90a; ptxas's registers and spills (a spill of any
      variant of any of them fails), K1's and K1-TC's shared memory per block
-     and resident blocks per SM, K-PLL's critical path per step from
-     cuobjdump -sass;
+     and resident blocks per SM, the critical path per step of each K-PLL
+     entry's serial kernel (pll_run's pll_chain_kernel) from cuobjdump -sass;
   2. K1 against its plain twin on the card, the block and its tail as two
      tensors: i16 real legs, f32 real legs and f32 complex legs (inf and
      sup) at ÷4/÷16/÷64 on the 10,240,000-sample product block; each
@@ -77,12 +77,15 @@ power limit as nvidia-smi reports them):
          the set idle with no error, its samples equal to (a)'s.
   9. the NFM CTCSS and AF squelch, sync-AM and broadcast-FM slice (K-PLL,
      kernels/csrc/pll_scan.cu, the per-sample loops of dsp/phaselock.py):
-     (a) K-PLL against its plain loop on the card: all three entry points at
-         16 × 4,096 samples, pll_run and ref_pll_run at 16 × 49,152 against
-         the plain loop on the CPU (dB over the block and the end phase's
-         error); each entry point's time by CUDA events at 16 × 49,152 and
-         pll_run's at the main path's 1 × 49,152, beside its bound (bytes
-         or operations) and its latency bound: T × the cycles of one step's
+     (a) K-PLL against its plain loop on the card, bit for bit: all three
+         entry points at 16 × 4,096 samples (pll_run's input gated: a
+         leading run of exact zeros, a zeroed stretch mid-block), pll_run
+         and ref_pll_run at 16 × 49,152 against the plain loop on the CPU
+         (dB over the block and the end phase's error); each entry point's
+         time by CUDA events at 1 × 49,152 (the main path's) and 16 ×
+         49,152, each kernel of the call alone by torch.profiler (pll_run's
+         detector, chain and carrier), beside its bound (bytes or
+         operations) and its latency bound: T × the cycles of one step's
          critical path, read from cuobjdump -sass (`sass_chain_cycles`);
      (b) sync AM on the product path: 10 MS/s i16 ÷64, AM at +20 kHz (1 kHz
          at 80 % depth), `sync_am` with USB and then DSB, 6 blocks of
@@ -126,6 +129,7 @@ import numpy as np
 import torch
 
 import torch.nn.functional as F
+from torch.autograd import DeviceType
 
 import sdrangel_tpu_torch.dsp.decimators as dec
 from sdrangel_tpu_torch.api.server import make_server
@@ -262,7 +266,8 @@ def ptxas_summary(report: str) -> list[str]:
                         f"{'complex' if v.group(3) == '1' else 'real'}>")
             elif k := re.search(r"\d(flat_decimate(?:_tc)?_kernel)I(.+?)EE+v", mangled):
                 name = f"{k.group(1)}<{k.group(2)}>"
-            elif k := re.search(r"\d((?:ref_|pilot_)?pll_kernel)E", mangled):
+            elif k := re.search(r"\d((?:ref_|pilot_)?pll(?:_detect|_chain|_carrier)?_kernel)E",
+                                mangled):
                 name = k.group(1)
             else:
                 name = mangled
@@ -1078,6 +1083,13 @@ BFM = "sdrangel.channel.bfm"
 SLICE_BLOCK = 10_240_000  # the device block of sync AM (÷64) and BFM (÷32) at 10 MS/s
 KPLL_CHANNELS, KPLL_SHORT, KPLL_LONG = 16, 4096, 49_152  # 49,152: one audio block
 KPLL_ENTRIES = ("pll_run", "ref_pll_run", "pilot_pll_run")  # pll_scan's wrappers
+#: each entry's serial kernel, whose hot loop bounds it
+KPLL_SERIAL = {"pll_run": "pll_chain_kernel", "ref_pll_run": "ref_pll_kernel",
+               "pilot_pll_run": "pilot_pll_kernel"}
+#: every kernel of pll_scan.cu: pll_run's three, then the other two entries'
+KPLL_KERNELS = ("pll_detect_kernel", "pll_chain_kernel", "pll_carrier_kernel",
+                "ref_pll_kernel", "pilot_pll_kernel")
+KPLL_SOURCE = os.path.join(REPO, "sdrangel_tpu_torch", "kernels", "csrc", "pll_scan.cu")
 #: operations per step, counting each add, multiply, divide, compare-select
 #: and each transcendental (sincos, atan2) as one: a floor for the bound
 KPLL_OPS = {"pll_run": 15, "ref_pll_run": 22, "pilot_pll_run": 24}
@@ -1191,19 +1203,31 @@ def sass_chain_cycles(sass: str, kernel: str, unroll: int) -> tuple[float, int]:
         for d in dests:
             if d not in ("RZ", "PT", "URZ", "UPT"):
                 state[d] = max(state.get(d, 0), ready) if guard else ready
+    check(state is not None, f"{kernel}: every path through its hot loop is a slow one")
     carried = max((state.get(r, 0) for r in live_in & written), default=0)
     return carried / unroll, count
 
 
+def kpll_unroll() -> dict:
+    """Steps per pass of each entry's hot loop, read from the source:
+    pll_chain_kernel's kChainUnroll, walk()'s kUnroll for the others."""
+    with open(KPLL_SOURCE) as f:
+        src = f.read()
+    unroll, chain = (int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+                     for k in ("kUnroll", "kChainUnroll"))
+    return {name: chain if name == "pll_run" else unroll for name in KPLL_ENTRIES}
+
+
 def kpll_sass(so_path: str) -> dict:
-    """Each K-PLL kernel's per-step critical path from cuobjdump -sass of
-    the built library: name -> (cycles per step, instructions in its loop)."""
+    """Each K-PLL entry's per-step critical path from cuobjdump -sass of its
+    serial kernel in the built library: name -> (cycles per step,
+    instructions in its loop)."""
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", so_path], capture_output=True, text=True,
                           check=True).stdout
-    return {name: sass_chain_cycles(sass, f"{len(kernel)}{kernel}", 8) for name, kernel in (
-        ("pll_run", "pll_kernel"), ("ref_pll_run", "ref_pll_kernel"),
-        ("pilot_pll_run", "pilot_pll_kernel"))}
+    unroll = kpll_unroll()
+    return {name: sass_chain_cycles(sass, f"{len(kernel)}{kernel}", unroll[name])
+            for name, kernel in KPLL_SERIAL.items()}
 
 
 def sm_clock_mhz() -> float:
@@ -1229,6 +1253,34 @@ def pll_input(rng, channels: int, size: int, real: bool) -> np.ndarray:
     x = x + 0.05 * (rng.standard_normal((channels, size)) + 1j * rng.standard_normal(
         (channels, size)))
     return x.astype(np.complex64)
+
+
+def gated(x: np.ndarray) -> np.ndarray:
+    """x (C, T) with a leading run of exact zeros, a zeroed stretch mid-block
+    and single zeros of each sign: the input where pll_run's split detector
+    must fall back to the rotated product's."""
+    x = x.copy()
+    x[:, :37] = 0.0
+    x[:, x.shape[1] // 2:x.shape[1] // 2 + 100] = 0.0
+    x[0, 3001 % x.shape[1]] = complex(-0.0, 0.0)
+    x[:, -596] = complex(-0.0, -0.0)
+    return x
+
+
+def kernel_device_ms(fn, calls: int = 5) -> dict:
+    """Device time per launch of each kernel fn() launches, by torch.profiler
+    (CUPTI; a kernel launched through ctypes shows under its own name). The
+    mean is over the launches the trace holds: late in a long process it
+    has held fewer than were made."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / e.count / 1e3 for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA and e.count}
 
 
 def _wrap(a) -> np.ndarray:
@@ -1268,12 +1320,17 @@ def phase_kpll(dev: torch.device, tag: str, sass: dict, clock_mhz: float) -> dic
             if size == KPLL_LONG and real:
                 continue  # the pilot loop: 16 × 4,096 on the card only
             x = pll_input(rng, KPLL_CHANNELS, size, real)
+            if name == "pll_run" and size == KPLL_SHORT:
+                x = gated(x)
             state0 = torch.stack(list(make(cpu, (KPLL_CHANNELS,))))
             st_k = state0.to(dev, copy=True)  # the kernel updates it in place
             y_k = wrapper(torch.from_numpy(x).to(dev), st_k, *args)
             torch.cuda.synchronize()
             y_p, st_p = plain(torch.from_numpy(x).to(plain_dev), state0.to(plain_dev), *args)
             y_k, st_k, y_p, st_p = (v.cpu().numpy() for v in (y_k, st_k, y_p, st_p))
+            if plain_dev.type == "cuda":
+                check(np.array_equal(y_k, y_p) and np.array_equal(st_k, st_p),
+                      f"{name} at {size}: not bit-equal to its plain loop on the card")
             if real:  # pre-update phases in [0, 2π)
                 e = float(np.abs(_wrap(y_k - y_p)).max())
                 end = float(np.abs(_wrap(st_k[0] - st_p[0])).max())
@@ -1305,7 +1362,15 @@ def phase_kpll(dev: torch.device, tag: str, sass: dict, clock_mhz: float) -> dic
         cycles, n_ins = sass[name]
         latency_ms = KPLL_LONG * cycles / (clock_mhz * 1e3)
         bound_ms, bound_by = kpll_bound(name, 1, KPLL_LONG)
-        out[name] = {"ms": ms1, "ms_16ch": ms16, "plain_ms": plain_ms,
+        # each kernel of the call alone, by the profiler: pll_run's three
+        split = {}
+        for shape, (xs, sts) in (("1ch", (x_one, st1)), ("16ch", (x_long, st))):
+            by_name = kernel_device_ms(lambda: wrapper(xs, sts, *args))
+            for k in KPLL_KERNELS:  # no name is a part of another
+                if found := [v for key, v in by_name.items() if k in key]:
+                    split[f"{k}_ms_{shape}"] = sum(found)
+        serial_ms = split.get(f"{KPLL_SERIAL[name]}_ms_1ch")
+        out[name] = {"ms": ms1, "ms_16ch": ms16, "plain_ms": plain_ms, "kernel_ms": split,
                      "plain_samples": plain_size, "bound_ms": bound_ms,
                      "bound_by": bound_by, "latency_bound_ms": latency_ms,
                      "chain_cycles_per_step": cycles, "loop_instructions": n_ins,
@@ -1315,10 +1380,14 @@ def phase_kpll(dev: torch.device, tag: str, sass: dict, clock_mhz: float) -> dic
               f"{ms1:.4f} ms, {KPLL_CHANNELS}x{KPLL_LONG} {ms16:.4f} ms (CUDA events, 20 "
               f"launches after 3 warm-up); plain loop on the card 1x{plain_size} {plain_ms:.1f} "
               f"ms (one call); bound {bound_ms:.6f} ms by {bound_by}; latency bound from the "
-              f"SASS {cycles:.1f} cycles per step ({n_ins} instructions in the {8}-step loop) "
-              f"= {latency_ms:.4f} ms at {clock_mhz:.0f} MHz; measured "
-              f"{out[name]['cycles_per_step']:.1f} cycles per step, the latency bound "
-              f"{100 * latency_ms / ms1:.1f} % of the measured time [{tag}]", flush=True)
+              f"SASS {cycles:.1f} cycles per step ({n_ins} instructions in the "
+              f"{kpll_unroll()[name]}-step loop of {KPLL_SERIAL[name]}) = {latency_ms:.4f} ms "
+              f"at {clock_mhz:.0f} MHz; measured {out[name]['cycles_per_step']:.1f} cycles per "
+              f"step, the latency bound {100 * latency_ms / ms1:.1f} % of the measured time; "
+              "each kernel alone (torch.profiler, ms per launch): "
+              + (", ".join(f"{k} {v:.4f}" for k, v in split.items()) or "not measured")
+              + (f"; the latency bound {100 * latency_ms / serial_ms:.1f} % of "
+                 f"{KPLL_SERIAL[name]}'s time" if serial_ms else "") + f" [{tag}]", flush=True)
     return out
 
 
@@ -1584,18 +1653,19 @@ def main() -> int:
           f"ptxas: {'; '.join(regs) or 'n/a'} [{tag}]", flush=True)
     lib = build.library()
     for kernel, count in (("flat_decimate_tc_kernel<", len(RATIOS)),
-                          ("flat_decimate_kernel<", 4 * len(RATIOS)), ("pll_kernel:", 1),
-                          ("ref_pll_kernel:", 1), ("pilot_pll_kernel:", 1)):
+                          ("flat_decimate_kernel<", 4 * len(RATIOS)),
+                          *((f"{k}:", 1) for k in KPLL_KERNELS)):
         lines = [line for line in regs if line.startswith(kernel)]
         check(len(lines) == count and all(" 0 bytes spill stores" in line for line in lines),
               f"{kernel} spills or is missing from the ptxas report: {lines}")
     sass = kpll_sass(info.path)
     clock_mhz = sm_clock_mhz()
     print("phase 1 build: K-PLL's critical path per step from cuobjdump -sass (the longest "
-          "dependent chain through the 8-step loop outside the math's slow paths, 4 cycles "
+          "dependent chain through the hot loop outside the math's slow paths, 4 cycles "
           "per dependent instruction): "
-          + ", ".join(f"{k} {c:.1f} cycles ({n} instructions in the loop)"
-                      for k, (c, n) in sass.items())
+          + ", ".join(f"{k} ({KPLL_SERIAL[k]}) {c:.1f} cycles ({n} instructions in the "
+                      f"{kpll_unroll()[k]}-step loop)" for k, (c, n) in sass.items())
+          + "; ptxas: " + "; ".join(line for line in regs if line.split(":")[0] in KPLL_KERNELS)
           + f"; max SM clock {clock_mhz:.0f} MHz [{tag}]", flush=True)
     k1_occ = {}
     for k in (2, 4, 6):
@@ -1671,7 +1741,7 @@ def main() -> int:
                         **{f: v[f] for f in ("ms", "ms_16ch", "plain_ms", "plain_samples",
                                              "bound_ms", "bound_by", "latency_bound_ms",
                                              "chain_cycles_per_step", "cycles_per_step",
-                                             "max_abs_err")}}
+                                             "max_abs_err", "kernel_ms")}}
                     for k, v in kpll.items()},
         "dsb_launches": sync_am["dsb"]["kpll"],
         "slice_k1_launches": {"sync_am": sync_am["usb"]["k1"], "ctcss": ctcss_launches,

@@ -5,14 +5,16 @@ AM), sdrbase/dsp/phaselock.{h,cpp} (the 19 kHz pilot loop of broadcast FM
 stereo), sdrbase/dsp/freqlockcomplex.cpp (the FLL).
 
 A PLL's loop filter feeds back every sample, so pll_run, ref_pll_run and
-pilot_pll_run are serial recurrences. On the card each is one launch of
-K-PLL (kernels/pll_scan.py), one thread per channel; on the CPU each runs
-its plain version here, a Python loop over time with whole-batch tensor
-ops, which is also the card tests' oracle. Both round every operation in
-float32 in the JAX scan's order (JAX sdrangel_tpu/dsp/phaselock.py); jnp.mod
-is a floor-mod built on the exact fmod, and JAX's weak-typed π and 2π are
-float32 values. The FLL is block-parallel (an EMA scan and a prefix sum)
-and stays plain PyTorch on both devices.
+pilot_pll_run are serial recurrences. On the card each is one call of
+K-PLL (kernels/pll_scan.py), whose serial part runs one thread per channel
+(pll_run's phase detector and carrier run in parallel around it); on the
+CPU each runs its plain version here, a Python loop over time with
+whole-batch tensor ops, which is also the card tests' oracle. Both round
+every operation in float32 in the JAX scan's order (JAX
+sdrangel_tpu/dsp/phaselock.py); jnp.mod is a floor-mod built on the exact
+fmod, and JAX's weak-typed π and 2π are float32 values. The FLL is
+block-parallel (an EMA scan and a prefix sum) and stays plain PyTorch on
+both devices.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ PI_F = float(np.float32(np.pi))
 TWO_PI_F = float(np.float32(2.0 * np.pi))
 
 
-def _floor_mod(x: torch.Tensor, y: float) -> torch.Tensor:
+def _floor_mod(x: torch.Tensor, y: float | torch.Tensor) -> torch.Tensor:
     """jnp.mod(x, y) for y > 0: the exact fmod, moved into [0, y)."""
     r = torch.fmod(x, y)
     return torch.where(r < 0.0, r + y, r)
@@ -47,19 +49,34 @@ def _columns(x: torch.Tensor) -> list[torch.Tensor]:
 # -- plain versions of K-PLL's entry points (x (C, T), state (S, C)) --------
 
 def pll_plain(x: torch.Tensor, state: torch.Tensor, g1: float, g2: float):
-    """The 2nd-order loop, sample by sample. Returns (carrier, state')."""
+    """The 2nd-order loop in split form. Returns (carrier, state').
+
+    arg(x · conj(e^{jθ})) = wrap(arg x − θ) for x ≠ 0, so arg x is taken
+    for the whole block before the loop and the carrier e^{jθ[n]} from the
+    stacked pre-update phases after it; the loop keeps only the subtract,
+    the wrap, the update and the floor-mod. An exact-zero sample takes the
+    rotated product's detector instead: the signs of its zero products make
+    that 0 or ±π, not −θ, as in JAX's scan. The constants are 0-dim f32
+    tensors: the same values as Python floats, at half the dispatch cost."""
     phase, freq = state.unbind(0)
-    cs, ss = [], []
-    for xr, xi in zip(_columns(x.real), _columns(x.imag)):
-        c, s = torch.cos(phase), torch.sin(phase)
-        cs.append(c)
-        ss.append(s)
-        err = _phase_error(xr, xi, c, s)
+    pi, neg_pi, two_pi, g1, g2 = (torch.tensor(v, dtype=torch.float32, device=x.device)
+                                  for v in (PI_F, -PI_F, TWO_PI_F, g1, g2))
+    theta_x = _columns(torch.atan2(x.imag, x.real))
+    zero = (x.real == 0.0) & (x.imag == 0.0)
+    zero_at = zero.any(0).tolist()
+    phases = []
+    for i, tx in enumerate(theta_x):
+        phases.append(phase)
+        err = tx - phase
+        err = torch.where(err > pi, err - two_pi, torch.where(err < neg_pi, err + two_pi, err))
+        if zero_at[i]:
+            rotated = _phase_error(x.real[:, i], x.imag[:, i], torch.cos(phase), torch.sin(phase))
+            err = torch.where(zero[:, i], rotated, err)
         freq = freq + g2 * err
         phase = phase + freq + g1 * err
-        phase = _floor_mod(phase + PI_F, TWO_PI_F) - PI_F
-    return (torch.complex(torch.stack(cs, -1), torch.stack(ss, -1)),
-            torch.stack([phase, freq]))
+        phase = _floor_mod(phase + pi, two_pi) - pi
+    theta = torch.stack(phases, -1)
+    return torch.complex(torch.cos(theta), torch.sin(theta)), torch.stack([phase, freq])
 
 
 def ref_pll_plain(x: torch.Tensor, state: torch.Tensor, coeffs: tuple[float, ...]):

@@ -126,7 +126,7 @@ def _library() -> ctypes.CDLL:
     lib.sdr_flat_decimate_tc_blocks_per_sm.argtypes = [i32]
     f32 = ctypes.c_float
     lib.sdr_pll_run.restype = i32
-    lib.sdr_pll_run.argtypes = [p, p, p, i32, i64, f32, f32, p]
+    lib.sdr_pll_run.argtypes = [p, p, p, p, p, i32, i64, f32, f32, p]
     lib.sdr_ref_pll_run.restype = i32
     lib.sdr_ref_pll_run.argtypes = [p, p, p, i32, i64, *[f32] * 5, p]
     lib.sdr_pilot_pll_run.restype = i32

@@ -1,9 +1,12 @@
 """K-PLL: the per-sample phase-locked loops on the card — wrappers.
 
-Three entry points of `csrc/pll_scan.cu`, one thread per channel walking
-the block in order with the loop state in registers:
+Three entry points of `csrc/pll_scan.cu`, each a serial loop run by one
+thread per channel walking the block in order with the loop state in
+registers:
   pll_run        x (C, T) complex64 -> carrier e^{jθ} (C, T) complex64,
-                 state (2, C) [phase, freq]
+                 state (2, C) [phase, freq]; three launches on the current
+                 stream: arg x per sample, the loop, the carrier per sample
+                 (two (T, C) float32 scratch arrays between them)
   ref_pll_run    x (C, T) complex64 -> carrier (C, T) complex64,
                  state (4, C) [v0, v1, v2, phi]
   pilot_pll_run  x (C, T) float32 -> pre-update phases (C, T) float32,
@@ -11,7 +14,8 @@ the block in order with the loop state in registers:
 Each takes CUDA tensors only and updates `state` in place; the plain
 versions (the per-sample PyTorch loops in dsp/phaselock.py) are what a CPU
 tensor runs, and phaselock dispatches between the two by the tensors'
-device. There is no fallback: a failed build or launch raises.
+device. There is no fallback: a failed build or launch raises. Each call
+adds one to its wrapper's `launches`, pll_run's three kernels included.
 """
 
 from __future__ import annotations
@@ -47,10 +51,12 @@ def pll_run(x: torch.Tensor, state: torch.Tensor, g1: float, g2: float) -> torch
     """The 2nd-order loop (JAX phaselock.pll_run): returns the carrier."""
     _check("pll_run", x, state, torch.complex64)
     out = torch.empty_like(x)
+    theta_x, theta = torch.empty((2, x.shape[1], x.shape[0]), dtype=torch.float32,
+                                 device=x.device)
     with torch.cuda.device(x.device):
         err = build.library().sdr_pll_run(
-            x.data_ptr(), out.data_ptr(), state.data_ptr(), x.shape[0], x.shape[1], g1, g2,
-            torch.cuda.current_stream().cuda_stream)
+            x.data_ptr(), out.data_ptr(), state.data_ptr(), theta_x.data_ptr(), theta.data_ptr(),
+            x.shape[0], x.shape[1], g1, g2, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "pll_run", x)
     pll_run.launches += 1
     return out

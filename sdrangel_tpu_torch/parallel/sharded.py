@@ -53,7 +53,7 @@ NFM_URI = "sdrangel.channel.nfmdemod"
 LAYERS = ("gear ÷2^k decimator", "gear spectrum tap", "gear PFB analysis",
           "gear channel select", "gear demod bank")
 _MULTI_CARD = ("several cards wait for the port of parallel/ over torch.distributed "
-               "(ROADMAP.md, queue 1, item 7)")
+               "(ROADMAP.md, queue 1, item 9)")
 
 
 def halo_samples(log2_decim: int, order: int = DECIMATORS_ORDER) -> int:

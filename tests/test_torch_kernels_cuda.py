@@ -468,6 +468,44 @@ def test_pll_scan_streamed_equals_long_block(cuda_device, loop):
     assert torch.equal(torch.cat(parts, dim=-1), long[0])
 
 
+def _gated(x: np.ndarray) -> np.ndarray:
+    """x (C, T) with a leading run of exact zeros, a zeroed stretch mid-block
+    and single zeros of each sign: the one input where arg(x·conj(e^{jθ}))
+    is not wrap(arg x − θ)."""
+    x = x.copy()
+    x[:, :37] = 0.0
+    x[:, 2000:2100] = 0.0
+    x[0, 3001] = complex(-0.0, 0.0)
+    x[-1, 3017] = complex(0.0, -0.0)
+    x[:, 3500] = complex(-0.0, -0.0)
+    return x
+
+
+@pytest.mark.parametrize("channels", [1, 16, 33])
+def test_pll_run_zero_runs_bit_equal_on_card(cuda_device, channels):
+    """pll_run's three kernels on a gated input against the split plain loop
+    on the same card: carrier and end state bit for bit (each exact zero
+    goes through the old detector in both, the rest through atan2f and
+    sincosf, the functions torch.atan2/cos/sin use on the card); one launch
+    per call. The first channel starts far outside the loop's range (θ =
+    100, f = 9 rad a sample), so its chunks leave the floor-mod's fast
+    range and run again through the exact one."""
+    plain, args, make, _ = _KPLL["pll_run"]
+    x = t(_gated(_pll_inputs(np.random.default_rng(90 + channels), channels, 4096, False)))
+    x = x.to(cuda_device)
+    state0 = torch.stack(list(make(cuda_device, (channels,))))
+    state0[0] = torch.linspace(-3.0, 3.0, channels)  # start θ in every quadrant
+    state0[:, 0] = torch.tensor([100.0, 9.0])
+    before = pll_scan.pll_run.launches
+    st_k = state0.clone().contiguous()
+    y_k = pll_scan.pll_run(x, st_k, *args)
+    torch.cuda.synchronize()
+    assert pll_scan.pll_run.launches == before + 1
+    y_p, st_p = plain(x, state0, *args)
+    assert torch.equal(y_k, y_p) and torch.equal(st_k, st_p)
+    assert pll_scan.pll_run.launches == before + 1
+
+
 def test_pll_scan_rejects_what_it_does_not_take(cuda_device):
     x = torch.zeros((2, 64), dtype=torch.complex64, device=cuda_device)
     with pytest.raises(TypeError):

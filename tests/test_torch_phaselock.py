@@ -266,6 +266,64 @@ def test_pll_streams_like_jax(loop):
     np.testing.assert_allclose(rot, [20.0, -35.0], atol=2.0)
 
 
+def _pll_blocks_like_jax(x, block):
+    """The port's pll_run and JAX's streamed over x (C, T) in blocks of
+    `block`: the carriers within 1e-4 and the end phases within 1e-4 rad."""
+    shape = x.shape[:-1]
+    js, ps = jpl.make_pll(shape), ppl.make_pll(CPU, shape)
+    jrun = jax.jit(lambda s, xb: jpl.pll_run(s, xb, 48_000.0))
+    for b in range(x.shape[-1] // block):
+        xb = x[..., b * block:(b + 1) * block]
+        js, jc = jrun(js, jnp.asarray(xb))
+        ps, pc = ppl.pll_run(ps, t(xb), 48_000.0)
+        np.testing.assert_allclose(n(pc), np.asarray(jc), atol=1e-4, err_msg=f"block {b}")
+    err = np.angle(np.exp(1j * (n(ps.phase).astype(np.float64) - np.asarray(js.phase))))
+    assert np.abs(err).max() < 1e-4
+    return ps, pc
+
+
+def test_pll_zero_runs_stream_like_jax():
+    """The split form on a gated input: a leading run of exact zeros and a
+    zeroed stretch mid-block (the squelch's shape), 3 blocks of 1024 with a
+    (2,) batch. On a zero the loop takes the rotated product's detector, as
+    JAX's scan does, so the zeros feed 0 or ±π into the loop, not −θ."""
+    rng = np.random.default_rng(52)
+    x = _am_carrier(rng, (2,), 3 * 1024, 48_000.0, np.asarray([[20.0], [-35.0]]))
+    x[:, :100] = 0.0
+    x[:, 1500:1700] = 0.0
+    x[1, 2100:2110] = complex(-0.0, -0.0)
+    _pll_blocks_like_jax(x, 1024)
+
+
+def test_pll_long_block_wraps_like_jax():
+    """One block of 8,192 samples, the carrier 37 Hz off: θ wraps through
+    ±π six times, and each wrap goes through the floor-mod's fast path."""
+    rng = np.random.default_rng(53)
+    x = _am_carrier(rng, (1,), 8192, 48_000.0, np.asarray([[37.0]]))
+    _, pc = _pll_blocks_like_jax(x, 8192)
+    pc = n(pc[:, 4096:])  # locked after the first half
+    rot = np.angle(pc[:, 1:] * pc[:, :-1].conj()).mean(axis=-1) * 48_000.0 / (2 * np.pi)
+    np.testing.assert_allclose(rot, [37.0], atol=2.0)
+
+
+def test_pll_error_on_an_exact_zero_is_the_rotated_products():
+    """An exact-zero sample's error is _phase_error's on the rotated zero (0
+    or ±π from the signs of its products), at θ in each quadrant and on each
+    axis, for each sign of the zero's parts. With g1 = 0 and g2 = 1 one step
+    leaves freq' = −0 + the error = the error exactly."""
+    thetas = np.float32([0.0, -0.0, 0.7, 2.2, -2.2, -0.7, ppl.PI_F, -ppl.PI_F, 1.5707964])
+    zeros = [complex(a, b) for a in (0.0, -0.0) for b in (0.0, -0.0)]
+    x = np.asarray([[z] for _ in thetas for z in zeros], np.complex64)
+    phase = np.repeat(thetas, len(zeros))
+    state = torch.stack([t(phase), torch.full((len(phase),), -0.0)])  # −0 + e = e
+    _, st = ppl.pll_plain(t(x), state, 0.0, 1.0)
+    th = t(phase)
+    want = ppl._phase_error(t(x.real[:, 0].copy()), t(x.imag[:, 0].copy()), torch.cos(th),
+                            torch.sin(th))
+    assert n(st[1]).tobytes() == n(want).tobytes()  # bit for bit, signed zeros too
+    assert set(np.abs(n(st[1])).tolist()) == {0.0, ppl.PI_F}  # both occur, nothing else
+
+
 def test_pilot_pll_streams_like_jax():
     """The 19 kHz pilot loop on an MPX at 192 kHz, (3,) batch, 3 blocks."""
     rng = np.random.default_rng(48)

@@ -173,9 +173,9 @@ def test_helpers_match_jax():
 
 
 def test_what_one_card_does_not_run_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 9"):
         psh.build_sharded_step(psh.ShardedPipelineConfig(n_time=2, n_channel=1, **BASE), CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 9"):
         psh.build_sharded_step(psh.ShardedPipelineConfig(
             n_time=1, n_channel=1, pfb_all_to_all=True, pfb_m=4, **BASE), CPU)
     with pytest.raises(ValueError, match="unknown channel kind"):
