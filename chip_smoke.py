@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's Rx product path and its channel-bank gear once
-on one CUDA card.
+"""Drive the PyTorch port's Rx product path, its channel-bank gear, its
+receivers, Tx and data channels once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -105,6 +105,30 @@ power limit as nvidia-smi reports them):
      (e) broadcast FM over HTTP: (d)'s blocks as a .sdriq played by a device
          set of the server on a cuda Session: the WAV's left channel equals
          RxPipeline.run's.
+  10. the data channels (no kernel of their own; K1 in front):
+     (a) set A at full width: 10.24 MS/s i16 ÷32 (320 kS/s; at 10 MS/s ÷32
+         the block solver needs 204.8 M device samples), one RxPipeline of
+         LoRa (SF9, 125 kHz, +80 kHz), DSD (DMR voice bursts as 4FSK,
+         ±5.4 kHz, −40 kHz), the channel analyzer (5 kHz, a tone at +5
+         kHz) and UDPSrc (nfm, a 1 kHz tone at 3 kHz deviation, −90 kHz),
+         made on the card, 6 blocks of 26,214,400 (the DSD symbol-clock
+         phase from a sweep on one block, see dsd_symbol_phase): K1 once
+         per block; LoRa's symbols within a bin of the modal offset on ≥ 99
+         % of frames; DSD's dibits at the best lag on ≥ 99 %, the host frame
+         sync finding ≥ 95 % of the DMR syncs sent; the analyzer's power
+         within 0.5 dB of the tone's; UDPSrc's tone above 25 dB; ≥ 80 dB
+         card against CPU on 2 blocks with the integer outputs equal; each
+         layer of a block alone and the device time by torch.profiler;
+     (b) set B: a PAL 625/25 picture (a ramp and bars) from the port's
+         atv_modulate at 20 MS/s, ÷2, the ATV receiver, 5 blocks of
+         327,680: K1 once per block, the sync phase constant, the notch
+         deeper than 0.3, the mean line against the test frame ρ > 0.95,
+         ≥ 80 dB card against CPU;
+     (c) set A's first 3 blocks as a .sdriq played by `python -m
+         sdrangel_tpu_torch server --device cuda` in its own process over
+         HTTP: each data route within one 5-place rounding step of the
+         pipeline's third block, dataBlocks 3, the DSD report equal to the
+         frame sync of the pipeline's dibits.
 Then a JSON line of the kernels, and last the ok line. Any failed check
 raises: the script then exits non-zero and prints no ok line. It needs a
 card; without one it exits non-zero at once.
@@ -117,6 +141,7 @@ import io
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -153,11 +178,27 @@ from sdrangel_tpu_torch.profile_product import (
     chainsharded_offsets,
     receiver_pipeline,
 )
-from sdrangel_tpu_torch.channels import demod_bfm
+from sdrangel_tpu_torch.channels import demod_bfm, dsdsync
+from sdrangel_tpu_torch.channels.modulators import (
+    ATVModConfig,
+    atv_composite,
+    atv_modulate,
+    make_atv_state,
+)
+from sdrangel_tpu_torch.channels.registry import requested_rate
+from sdrangel_tpu_torch.dsp import channelizer as chan
 from sdrangel_tpu_torch.dsp import interpolators as interp
 from sdrangel_tpu_torch.dsp import phaselock
-from sdrangel_tpu_torch.runtime.engine import ChannelSpec, DeviceConfig, RxPipeline, fetch
-from sdrangel_tpu_torch.runtime.session import Session
+from sdrangel_tpu_torch.dsp import scope as dsp_scope
+from sdrangel_tpu_torch.dsp import spectrum as dsp_spectrum
+from sdrangel_tpu_torch.runtime.engine import (
+    ChannelSpec,
+    DeviceConfig,
+    RxPipeline,
+    fetch,
+    pack_outs,
+)
+from sdrangel_tpu_torch.runtime.session import DsdHostSync, Session
 from sdrangel_tpu_torch.runtime.tx import TxChannelSpec, TxDeviceConfig, TxPipeline
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1629,6 +1670,488 @@ def phase_bfm_server(blocks: list[np.ndarray], audio: np.ndarray, tag: str) -> i
     return launches
 
 
+# -- phase 10: the data channels (LoRa, DSD, the channel analyzer, UDPSrc, ATV) ---
+
+LORA = "sdrangel.channel.lorademod"
+DSD = "sdrangel.channel.dsddemod"
+CHANALYZER = "sdrangel.channel.chanalyzer"
+UDPSRC = "sdrangel.channel.udpsrc"
+ATV = "sdrangel.channel.demodatv"
+#: set A's capture: 10.24 MS/s ÷32 = 320 kS/s. At 10 MS/s ÷32 the block solver
+#: needs 204,800,000 device samples (UDPSrc's 512-sample hop and the DSD's
+#: whole symbols at 78.125 kHz), past its 2^25 cap; 10.24 MS/s puts the
+#: 48 kHz channels at 80 kHz
+DATA_RATE, DATA_LOG2 = 10.24e6, 5
+DATA_BLOCK = 26_214_400  # the solver's block for set A
+DATA_BLOCKS, DATA_SERVER_BLOCKS = 6, 3
+#: set A: LoRa's 125 kHz band at +80 kHz spans 17.5-142.5 kHz, inside K1's
+#: flat passband (−0.004 dB at 140 kHz) and clear of the analyzer's 0-10 kHz
+DSD_DEV = 5400.0  # the outer symbol's deviation (the dsd96 golden's)
+DATA_SET_A = [
+    (LORA, 80_000.0, {"spread_factor": 9, "bandwidth": 125_000.0}),
+    (DSD, -40_000.0, {"fm_deviation": DSD_DEV}),
+    (CHANALYZER, 5_000.0, {"bandwidth": 5000.0}),
+    (UDPSRC, -90_000.0, {"fmt": "nfm", "fm_deviation": 3000.0}),
+]
+LORA_AMP, DSD_AMP, TONE_AMP, UDP_AMP, NOISE = 0.2, 0.2, 0.1, 0.2, 1e-3
+DSD_SPS = DATA_RATE / 4800.0  # capture samples a DSD symbol
+#: set B: PAL 625/25 captured at 20 MS/s, ÷2 -> 10 MS/s, 640 samples a line
+ATV_RATE, ATV_BLOCKS = 20e6, 5
+DSD_PHASES = 8  # symbol-clock phases tried by the DSD sweep
+
+
+def _turns(n: torch.Tensor, freq: float, rate: float) -> torch.Tensor:
+    """2π·frac(freq·n/rate) in float64 (every set-A frequency over the rate
+    is a binary fraction, so the product is exact)."""
+    return 2.0 * np.pi * torch.remainder(n.to(torch.float64) * (freq / rate), 1.0)
+
+
+def _i16(x: torch.Tensor) -> np.ndarray:
+    return torch.round(torch.view_as_real(x) * 32767.0).to(torch.int16).cpu().numpy()
+
+
+def dsd_dibits(rng, n_sym: int) -> np.ndarray:
+    """DMR base-station voice bursts (TS 102 361-1 §6.1: 54 voice dibits,
+    the 24-dibit sync, 54 voice dibits and 12 more), random payload."""
+    bursts = [np.concatenate([rng.integers(0, 4, 54), dsdsync.DMR_BS_VOICE,
+                              rng.integers(0, 4, 66)])
+              for _ in range(n_sym // dsdsync.DMR_BURST_DIBITS + 1)]
+    return np.concatenate(bursts)[:n_sym].astype(np.int8)
+
+
+def dsd_block(dev, dibits: np.ndarray, start: int, count: int, phase: float,
+              carry: float, offset: float, amp: float) -> tuple[torch.Tensor, float]:
+    """`count` capture samples from `start` of the dibits as rectangular 4FSK
+    (DSDcc's levels: ±1, ±3 → ±dev/3, ±dev), the symbol clock `phase`
+    symbols late, at `offset`: (samples, the deviation phase carried)."""
+    n = torch.arange(start, start + count, device=dev, dtype=torch.int64)
+    m = torch.clamp(torch.floor(n.to(torch.float64) / DSD_SPS - phase), min=0).to(torch.int64)
+    levels = torch.from_numpy(dsdsync.DIBIT_LEVELS[dibits].astype(np.float64) / 3.0 * DSD_DEV)
+    dphi = carry + torch.cumsum(levels.to(dev)[m], 0) * (2.0 * np.pi / DATA_RATE)
+    return amp * torch.polar(torch.ones_like(dphi), dphi + _turns(n, offset, DATA_RATE)), float(
+        dphi[-1])
+
+
+def data_set_a(dev, n_blocks: int, dsd_phase: float, seed: int = 10):
+    """Set A's capture, made on `dev` in float64 block by block: LoRa SF9
+    symbols at +80 kHz, DMR 4FSK at −40 kHz, a tone at +5 kHz, an FM tone
+    (1 kHz, 3 kHz deviation) at −90 kHz and noise, as int16 host blocks.
+    Returns (blocks, LoRa symbols sent, dibits sent)."""
+    rng = np.random.default_rng(seed)
+    nb = 512
+    total = n_blocks * DATA_BLOCK
+    syms = rng.integers(0, nb, int(total / DATA_RATE * 125_000.0 / nb) + 2)
+    dibits = dsd_dibits(rng, int(total / DSD_SPS) + 2)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sym_t = torch.from_numpy(syms.astype(np.float64)).to(dev)
+    blocks, carry = [], 0.0
+    for b in range(n_blocks):
+        n = torch.arange(b * DATA_BLOCK, (b + 1) * DATA_BLOCK, device=dev, dtype=torch.int64)
+        chips = n.to(torch.float64) * (125_000.0 / DATA_RATE)
+        m = torch.floor(chips / nb)
+        u = torch.remainder(chips - m * nb + sym_t[m.to(torch.int64)], nb)
+        lora = 2.0 * np.pi * (u * u / (2.0 * nb) - u / 2.0) + _turns(n, 80_000.0, DATA_RATE)
+        x = LORA_AMP * torch.polar(torch.ones_like(lora), lora)
+        fsk, carry = dsd_block(dev, dibits, b * DATA_BLOCK, DATA_BLOCK, dsd_phase, carry,
+                               -40_000.0, DSD_AMP)
+        x = x + fsk
+        tone = _turns(n, 5_000.0, DATA_RATE)
+        x = x + TONE_AMP * torch.polar(torch.ones_like(tone), tone)
+        fm = _turns(n, -90_000.0, DATA_RATE) + 3.0 * torch.sin(_turns(n, 1000.0, DATA_RATE))
+        x = x + UDP_AMP * torch.polar(torch.ones_like(fm), fm)
+        x = x + NOISE * torch.randn(x.shape, dtype=torch.complex128, device=dev, generator=gen)
+        blocks.append(_i16(x.to(torch.complex64)))
+    return blocks, syms, dibits
+
+
+def best_lag_share(got: np.ndarray, sent: np.ndarray, lags, skip: int) -> tuple[float, int]:
+    """The share of got[skip:] equal to sent shifted by the best lag."""
+    best = (0.0, 0)
+    for lag in lags:
+        i = np.arange(skip, len(got))
+        j = i + lag
+        ok = (j >= 0) & (j < len(sent))
+        best = max(best, (float(np.mean(got[i[ok]] == sent[j[ok]])), lag))
+    return best
+
+
+def dsd_symbol_phase(dev) -> tuple[float, list[float]]:
+    """The DSD channel's symbol timing loop moves its phase ~0.1 sample a
+    block whatever the block's length (ROADMAP.md §3), so a capture whose
+    symbol clock sits far from the loop's starting instant decodes at
+    54-95 % for tens of blocks. A transmitter's preamble gives a real
+    receiver that time; here the capture's symbol clock takes the phase,
+    of DSD_PHASES tried on one block of the DSD channel alone, whose
+    dibits agree best with the sent ones (the first block's symbols are
+    all taken at the loop's starting instant). Returns (phase, shares)."""
+    spec = [ChannelSpec(DSD, -40_000.0, DATA_SET_A[1][2], 48_000.0)]
+    pipe = RxPipeline(DeviceConfig(DATA_RATE, log2_decim=DATA_LOG2), spec, dev,
+                      block_size=1 << 16)
+    rng = np.random.default_rng(11)
+    dibits = dsd_dibits(rng, int(pipe.device_block / DSD_SPS) + 2)
+    shares = []
+    for k in range(DSD_PHASES):
+        x, _ = dsd_block(dev, dibits, 0, pipe.device_block, k / DSD_PHASES, 0.0, -40_000.0, 0.5)
+        _, outs = next(iter(pipe.run(lambda b, n: _i16(x), 1)))
+        got = outs["channels"][0]["data"]["dibits"]
+        shares.append(best_lag_share(got, dibits, range(-120, 21), len(got) // 2)[0])
+    return int(np.argmax(shares)) / DSD_PHASES, shares
+
+
+def _data(outs: list[dict], c: int, key: str) -> np.ndarray:
+    return np.concatenate([np.atleast_1d(o["channels"][c]["data"][key]) for o in outs])
+
+
+def stage_ms(fn, iters: int = 5) -> tuple[float, float]:
+    """(host ms, device ms) of fn() alone: the host clock from the call to
+    the end of a synchronize, and CUDA events around the call, each the mean
+    of `iters` after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    host = dev_ms = 0.0
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        host += time.perf_counter() - t0
+        dev_ms += start.elapsed_time(end)
+    return host / iters * 1e3, dev_ms / iters
+
+
+def data_layer_ms(pipe: RxPipeline, raw: np.ndarray) -> dict:
+    """Each layer of one set-A block alone: the upload, K1, each channel
+    (its channelizer, demod and adapter), the spectrum and scope taps, the
+    packing of the outputs and their read-back."""
+    state = pipe.init_state()
+    dev_raw = pipe.upload(raw)
+    dstate, bb = dec.decimate_flat_raw(state["dev_casc"], dev_raw, pipe.frontend.log2_decim)
+    layers = {"upload": lambda: pipe.upload(raw),
+              "K1": lambda: dec.decimate_flat_raw(state["dev_casc"], dev_raw,
+                                                  pipe.frontend.log2_decim)}
+    for c, (plan, kind, cfg) in enumerate(zip(pipe.plans, pipe.kinds, pipe.demod_cfgs)):
+        def channel(c=c, plan=plan, kind=kind, cfg=cfg):
+            _, y = chan.channelize(state["chan"][c], bb, plan)
+            _, result = kind.process(state["demod"][c], y, cfg)
+            return kind.adapter(result)
+        layers[kind.uri.rsplit(".", 1)[-1]] = channel
+    layers["spectrum+scope"] = lambda: (
+        dsp_spectrum.power_spectrum(state["spectrum"], bb, pipe.spectrum_cfg),
+        dsp_scope.project(bb[:1024], dsp_scope.Projection.MAG_DB))
+    _, flat = pipe.step_packed(state, dev_raw)
+    _, outs = pipe.step(state, dev_raw)
+    layers["pack"] = lambda: pack_outs(outs)
+    layers["read-back"] = lambda: fetch(flat)
+    layers["step"] = lambda: pipe.step_packed(state, dev_raw)
+    return {name: stage_ms(fn) for name, fn in layers.items()}
+
+
+def _agree_outs(cpu: list[dict], card: list[dict]) -> tuple[float, int, int]:
+    """Card against CPU over the blocks of both: the least agreement (dB)
+    of the float outputs (the spectrum as linear power), and (dibits equal,
+    dibits compared): every LoRa symbol and squelch flag must be equal, and
+    every dibit whose CPU soft value is clear of a slicer threshold (the
+    squelch's first 480 samples are zeros whose FFT-filtered ±1e-9 residue
+    falls either side of 0)."""
+    worst, same, compared = np.inf, 0, 0
+    for co, go in zip(cpu, card):
+        for c, (cc, gc) in enumerate(zip(co["channels"], go["channels"])):
+            for k, want in cc["data"].items():
+                got = gc["data"][k]
+                check(got.shape == want.shape and got.dtype == want.dtype,
+                      f"data {c} {k}: card {got.shape} {got.dtype}, CPU {want.shape} {want.dtype}")
+                if k == "dibits":
+                    soft = cc["data"]["soft_symbols"]
+                    level = soft / max(1.5 * float(np.abs(soft).mean()), 1e-6)
+                    clear = (np.abs(soft) > 2e-5) & (np.abs(np.abs(level) - 2 / 3) > 1e-3)
+                    check(np.array_equal(got[clear], want[clear]), "dibits: card vs CPU differ")
+                    same, compared = same + int(clear.sum()), compared + clear.size
+                elif want.dtype != np.float32:
+                    check(np.array_equal(got, want), f"data {c} {k}: card vs CPU differ")
+                else:
+                    lin = (lambda v: 10.0 ** (v / 10.0)) if k == "spectrum" else (lambda v: v)
+                    worst = min(worst, agreement_db(lin(want.astype(np.float64)),
+                                                    lin(got.astype(np.float64))))
+    return worst, same, compared
+
+
+def phase_data(dev: torch.device, tag: str) -> dict:
+    """Set A at full width: LoRa, DSD, the channel analyzer and UDPSrc
+    behind K1 in one RxPipeline; checks, card against CPU, the profiler's
+    device time and each layer alone."""
+    specs = [ChannelSpec(u, o, s, requested_rate(u, s)) for u, o, s in DATA_SET_A]
+    pipe = RxPipeline(DeviceConfig(DATA_RATE, log2_decim=DATA_LOG2), specs, dev)
+    check(pipe.device_block == DATA_BLOCK and pipe.fused_ingest,
+          f"set A: device block {pipe.device_block}, plans {pipe.plans}")
+    t0 = time.perf_counter()
+    phase, shares = dsd_symbol_phase(dev)
+    blocks, syms, dibits = data_set_a(dev, DATA_BLOCKS, phase)
+    print(f"phase 10a data: DSD symbol-clock phase {phase:.3f} of {DSD_PHASES} tried on one "
+          f"block of the DSD channel alone, dibit shares " + ", ".join(f"{s:.4f}" for s in shares)
+          + f"; generated {DATA_BLOCKS} blocks of {DATA_BLOCK} i16 samples on the card in "
+          f"{time.perf_counter() - t0:.2f} s (set-up) [{tag}]", flush=True)
+    list(pipe.run(lambda b, n: blocks[b], 2))  # warm-up: cuFFT plans, the kernel library
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [o for _, o in pipe.run(lambda b, n: blocks[b], DATA_BLOCKS)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    k1 = flat_decimate.launches
+    check(k1 == DATA_BLOCKS and flat_decimate_tc.launches == 0 and kpll_launches() == 0,
+          f"set A: K1 {k1}, K1-TC {flat_decimate_tc.launches} launches for {DATA_BLOCKS}")
+    # LoRa: one symbol a frame, up to the chain's constant bin offset (its
+    # delay in chips). The demod has no fractional timing recovery (the
+    # reference's detect() neither), so a delay off the chip grid splits a
+    # frame's peak between two neighbouring bins: the check takes the bin
+    # and its neighbours, and the exact share is printed beside it
+    got = _data(outs, 0, "symbols")
+    check(len(got) == DATA_BLOCKS * 625, f"LoRa: {len(got)} frames")
+    offs = (got[1:].astype(np.int64) - syms[1:len(got)]) % 512
+    modal = int(np.bincount(offs).argmax())
+    lora_exact = float(np.mean(offs == modal))
+    lora_share = float(np.mean(np.abs((offs - modal + 256) % 512 - 256) <= 1))
+    check(lora_share >= 0.99, f"LoRa: {lora_share:.4f} of frames within a bin of the modal "
+                              f"offset {modal}")
+    # DSD: the dibits at the best lag, and the DMR syncs found by the host
+    got = _data(outs, 1, "dibits")
+    dsd_share, lag = best_lag_share(got, dibits, range(-120, 21), 200)
+    check(dsd_share >= 0.99, f"DSD: {dsd_share:.4f} of dibits at lag {lag}")
+    sync = DsdHostSync()
+    for o in outs:
+        report = sync.feed(o["channels"][1]["data"]["dibits"])
+    sent_bursts = (len(got) + lag - 200) // dsdsync.DMR_BURST_DIBITS
+    found = report["syncCounts"].get("dmr:bs_voice", 0)
+    check(found >= 0.95 * sent_bursts, f"DSD: {found} DMR syncs of {sent_bursts} sent")
+    # the analyzer's power against the tone's; the UDPSrc NFM tone
+    power = float(outs[-1]["channels"][2]["data"]["channelPowerDB"])
+    tone_db = 20.0 * np.log10(TONE_AMP)
+    check(abs(power - tone_db) <= 0.5, f"chanalyzer: {power:.2f} dB against {tone_db:.2f}")
+    scalar = _data(outs[DATA_BLOCKS // 2:], 3, "scalar")
+    udp_snr = tone_snr(scalar.astype(np.float64), 1000.0, 48_000.0)
+    check(udp_snr > 25.0 and bool(outs[-1]["channels"][3]["data"]["squelch"]),
+          f"udpsrc: tone SNR {udp_snr:.1f} dB")
+    # card against the CPU pipeline on the first 2 blocks
+    t0 = time.perf_counter()
+    cpu_pipe = RxPipeline(DeviceConfig(DATA_RATE, log2_decim=DATA_LOG2), specs, "cpu")
+    cpu = [o for _, o in cpu_pipe.run(lambda b, n: blocks[b], 2)]
+    cpu_s = time.perf_counter() - t0
+    agree, same, compared = _agree_outs(cpu, outs[:2])
+    check(agree >= 80.0 and same >= compared - 60,
+          f"set A card vs CPU: {agree:.1f} dB, dibits {same} of {compared} compared")
+    signal_s = DATA_BLOCKS * DATA_BLOCK / DATA_RATE
+    print(f"phase 10a data: 10.24 MS/s /32, LoRa SF9 +80 kHz, DSD -40 kHz, chanalyzer +5 kHz, "
+          f"udpsrc nfm -90 kHz; {DATA_BLOCKS} blocks in {elapsed:.4f} s = "
+          f"{elapsed / DATA_BLOCKS * 1e3:.3f} ms/block, real-time factor "
+          f"{signal_s / elapsed:.2f}; K1 launches {k1}; LoRa {lora_share:.4f} of {len(offs)} "
+          f"frames within a bin of the modal offset {modal}, {lora_exact:.4f} on it; DSD {dsd_share:.4f} of dibits at lag {lag}, {found} DMR "
+          f"syncs of {sent_bursts} bursts; chanalyzer {power:.3f} dB (tone {tone_db:.3f}); "
+          f"udpsrc tone SNR {udp_snr:.2f} dB; card vs CPU on 2 blocks {agree:.2f} dB, dibits "
+          f"equal on {same} of {len(_data(cpu, 1, 'dibits'))} (the rest within 2e-5 of a "
+          f"threshold), symbols and flags equal (CPU run {cpu_s:.1f} s) [{tag}]", flush=True)
+    layers = data_layer_ms(pipe, blocks[0])
+    print("phase 10a data: each layer of one block alone, host ms (to a synchronize) / "
+          "device ms (CUDA events): " + ", ".join(f"{k} {h:.3f}/{d:.3f}"
+                                                  for k, (h, d) in layers.items())
+          + f" [{tag}]", flush=True)
+    print(f"phase 10a data: device time of 3 blocks by torch.profiler, against the timed run's "
+          f"{elapsed / DATA_BLOCKS * 1e3:.3f} ms/block [{tag}]", flush=True)
+    _device_time(lambda: list(pipe.run(lambda b, n: blocks[b], 3)), 3,
+                 elapsed / DATA_BLOCKS * 3)
+    return {"k1": k1, "blocks": blocks, "pipe": pipe}
+
+
+def atv_test_frame() -> np.ndarray:
+    """(625, 64) luma: a ramp across the left half, bars of 4 columns across
+    the right half, on every line."""
+    frame = np.zeros((625, 64), np.float32)
+    frame[:, :32] = np.linspace(0.0, 1.0, 32, dtype=np.float32)
+    frame[:, 32:] = (np.arange(32) // 4 % 2).astype(np.float32)
+    return frame
+
+
+def phase_atv(dev: torch.device, tag: str) -> int:
+    """Set B: the port's ATV modulator's PAL picture at 20 MS/s through K1
+    ÷2 and the ATV receiver."""
+    mcfg = ATVModConfig(channel_rate=ATV_RATE, modulation="am")
+    pipe = RxPipeline(DeviceConfig(ATV_RATE, log2_decim=1),
+                      [ChannelSpec(ATV, 0.0, {}, requested_rate(ATV, {}))], dev)
+    spl = pipe.demod_cfgs[0].samples_per_line
+    check(pipe.device_block == 327_680 and spl == 640 and pipe.plans[0].signs == (),
+          f"atv: device block {pipe.device_block}, {spl} samples a line")
+    frame = torch.from_numpy(atv_test_frame()).to(dev)
+    comp = atv_composite(mcfg, frame)  # one frame, 1280 samples a line
+    video = comp.repeat(-(-ATV_BLOCKS * pipe.device_block // comp.numel()))
+    _, x = atv_modulate(make_atv_state(mcfg, dev), video[:ATV_BLOCKS * pipe.device_block], mcfg)
+    raw = _i16(x)
+    blocks = [raw[b * pipe.device_block:(b + 1) * pipe.device_block] for b in range(ATV_BLOCKS)]
+    list(pipe.run(lambda b, n: blocks[b], 2))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [o for _, o in pipe.run(lambda b, n: blocks[b], ATV_BLOCKS)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    k1 = flat_decimate.launches
+    check(k1 == ATV_BLOCKS, f"atv: K1 {k1} launches for {ATV_BLOCKS}")
+    phases = [float(o["channels"][0]["data"]["sync_phase"]) for o in outs]
+    quality = min(float(o["channels"][0]["data"]["sync_quality"]) for o in outs)
+    check(len(set(phases[1:])) == 1, f"atv: sync phase moves across blocks {phases}")
+    check(quality > 0.3, f"atv: sync notch {quality:.3f}")
+    # the mean recovered line against the sent composite line (÷2), active
+    # region, at the best circular alignment: test_atv.py:53's ρ > 0.95
+    lines = _data(outs, 0, "lines")
+    mean_line = lines.mean(axis=0)
+    sent = comp[:2 * spl].cpu().numpy()[::2]  # the first line, at the channel rate
+    active = slice(int(0.08 * spl) + spl // 16 + 4, spl - 4)
+    rho = max(float(np.corrcoef(np.roll(mean_line, lag)[active], sent[active])[0, 1])
+              for lag in range(spl))
+    check(rho > 0.95, f"atv: mean line against the test frame rho {rho:.4f}")
+    cpu_pipe = RxPipeline(DeviceConfig(ATV_RATE, log2_decim=1),
+                          [ChannelSpec(ATV, 0.0, {}, requested_rate(ATV, {}))], "cpu")
+    cpu = [o for _, o in cpu_pipe.run(lambda b, n: blocks[b], 2)]
+    agree, _, _ = _agree_outs(cpu, outs[:2])
+    check(agree >= 80.0, f"atv: card vs CPU {agree:.1f} dB")
+    signal_s = ATV_BLOCKS * pipe.device_block / ATV_RATE
+    print(f"phase 10b atv: 20 MS/s /2 PAL 625/25 AM from atv_modulate, {ATV_BLOCKS} blocks "
+          f"({ATV_BLOCKS * pipe.device_block // 2 // spl} lines) in {elapsed:.4f} s = "
+          f"{elapsed / ATV_BLOCKS * 1e3:.3f} ms/block, real-time factor "
+          f"{signal_s / elapsed:.2f}; K1 launches {k1}; sync phase {phases}, notch depth >= "
+          f"{quality:.4f}; mean line against the test frame rho {rho:.4f}; card vs CPU on 2 "
+          f"blocks {agree:.2f} dB [{tag}]", flush=True)
+    return k1
+
+
+def _trimmed(v: np.ndarray):
+    """The data route's form of one array (api/server.py)."""
+    if v.ndim == 0:
+        return round(float(v), 5)
+    a = v.reshape(-1) if v.ndim > 2 else v
+    return np.round(a[..., -2048:], 5)
+
+
+def phase_data_server(pipe: RxPipeline, blocks: list[np.ndarray], tag: str) -> None:
+    """Set A's first blocks as a .sdriq, played by `python -m
+    sdrangel_tpu_torch server` in its own process, driven over HTTP only,
+    against `pipe` stepped on the same blocks with the session's per-block
+    overrides (UDPSrc's offset through the f32 increment, as the session
+    passes it)."""
+    n_blocks = DATA_SERVER_BLOCKS
+    state, outs = pipe.init_state(), []
+    for raw in blocks[:n_blocks]:
+        state, flat = pipe.step_packed(state, pipe.upload(raw), pipe.default_dyn())
+        outs.append(pipe.to_host(flat))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    with tempfile.TemporaryDirectory() as tmp:
+        log = open(os.path.join(tmp, "server.log"), "w+")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "sdrangel_tpu_torch", "server", "--device", DEVICE,
+             "--api-port", str(port)], cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            path = os.path.join(tmp, "set_a.sdriq")
+            writer = sdriq.SdriqWriter(path, sample_rate=int(DATA_RATE))
+            for b in blocks[:n_blocks]:
+                writer.write(b)
+            writer.close()
+            t0 = time.perf_counter()
+            while True:
+                try:
+                    if http(base, "/sdrangel")[0] == 200:
+                        break
+                except OSError:
+                    pass
+                check(proc.poll() is None and time.perf_counter() - t0 < 120,
+                      "data server: the server did not come up")
+                time.sleep(0.2)
+            check(http(base, "/sdrangel/devicesets", "POST")[0] == 201, "data server: add set")
+            code, reply = http(base, "/sdrangel/deviceset/0/device/settings", "PATCH", {
+                "kind": "filesource", "file_path": path, "log2_decim": DATA_LOG2,
+                "run_blocks": n_blocks, "publish_every": 1})
+            check(code == 200, f"data server: device settings {reply}")
+            for uri, offset, settings in DATA_SET_A:
+                code, reply = http(base, "/sdrangel/deviceset/0/channel", "POST", {
+                    "channelType": uri, "inputFrequencyOffset": offset, **settings})
+                check(code == 201, f"data server: add {uri} {reply}")
+            t0 = time.perf_counter()
+            check(http(base, "/sdrangel/deviceset/0/device/run", "POST")[0] == 200,
+                  "data server: run")
+            while http(base, "/sdrangel/deviceset/0")[1]["state"] == "running":
+                check(time.perf_counter() - t0 < 300, "data server: still running after 300 s")
+                time.sleep(0.01)
+            _, entry = http(base, "/sdrangel/deviceset/0")
+            check(entry["state"] == "idle" and not entry["error"],
+                  f"data server: {entry['state']} {entry['error']!r}")
+            _, device = http(base, "/sdrangel/deviceset/0/device/report")
+            data = [http(base, f"/sdrangel/deviceset/0/channel/{j}/data")
+                    for j in range(len(DATA_SET_A))]
+            reports = [http(base, f"/sdrangel/deviceset/0/channel/{j}/report")[1]
+                       for j in range(len(DATA_SET_A))]
+            # the same blocks again in the warm process: the first run's
+            # time holds the process's first cuFFT plans and kernel load
+            code, reply = http(base, "/sdrangel/deviceset/0/device/settings", "PATCH",
+                               {"run_blocks": 2 * n_blocks})
+            check(code == 200, f"data server: device settings {reply}")
+            t0 = time.perf_counter()
+            check(http(base, "/sdrangel/deviceset/0/device/run", "POST")[0] == 200,
+                  "data server: second run")
+            while http(base, "/sdrangel/deviceset/0")[1]["state"] == "running":
+                check(time.perf_counter() - t0 < 300, "data server: still running after 300 s")
+                time.sleep(0.01)
+            _, warm = http(base, "/sdrangel/deviceset/0/device/report")
+            _, entry = http(base, "/sdrangel/deviceset/0")
+            check(entry["state"] == "idle" and not entry["error"]
+                  and warm["blocksProcessed"] == 2 * n_blocks,
+                  f"data server: second run {entry['state']} {entry['error']!r} {warm}")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            log.seek(0)
+            server_log = log.read()
+            log.close()
+    worst, worst_at = 0.0, ""
+    for j, ((code, reply), rep) in enumerate(zip(data, reports)):
+        check(code == 200 and reply["dataBlocks"] == n_blocks == rep["dataBlocks"],
+              f"data server: channel {j} {code} {reply.get('dataBlocks')} {server_log[-2000:]}")
+        want = outs[n_blocks - 1]["channels"][j]["data"]
+        check(sorted(reply["data"]) == sorted(want) == rep["dataKeys"],
+              f"data server: channel {j} keys {sorted(reply['data'])}")
+        for k, v in want.items():
+            got, exp = np.asarray(reply["data"][k], np.float64), np.asarray(_trimmed(v),
+                                                                            np.float64)
+            check(got.shape == exp.shape, f"data server: {j} {k} {got.shape} vs {exp.shape}")
+            if k == "spectrum":  # dB: its deep bins compared as power relative to the peak
+                got, exp = 10.0 ** ((got - exp.max()) / 10.0), 10.0 ** ((exp - exp.max()) / 10.0)
+            err = float(np.abs(got - exp).max()) if got.size else 0.0
+            worst, worst_at = max((worst, worst_at), (err, f"channel {j} {k}"))
+    check(worst <= 1.5e-5, f"data server: data route vs the pipeline's block {worst:.2e} "
+                         f"({worst_at})")
+    sync = DsdHostSync()
+    for o in outs[:n_blocks]:
+        want_report = sync.feed(o["channels"][1]["data"]["dibits"])
+    check(reports[1].get("dsd") == json.loads(json.dumps(want_report)),
+          "data server: the DSD report differs from the frame sync of the pipeline's dibits")
+    found = reports[1]["dsd"]["syncCounts"].get("dmr:bs_voice", 0)
+    check(found > 0, "data server: no DMR sync in the DSD report")
+    print(f"phase 10c data server: python -m sdrangel_tpu_torch server --device {DEVICE}, "
+          f"set A's first {n_blocks} blocks from a .sdriq over HTTP, streamed: "
+          f"{device['elapsedSeconds'] / n_blocks * 1e3:.3f} ms/block (device report), "
+          f"real-time factor {device['realtimeFactor']:.2f} in the process's first run, "
+          f"{warm['elapsedSeconds'] / n_blocks * 1e3:.3f} ms/block, real-time factor "
+          f"{warm['realtimeFactor']:.2f} in its second; the data route of the 4 channels "
+          f"within {worst:.1e} of RxPipeline's block {n_blocks - 1} (trimmed to 2048, 5 places); "
+          f"dataBlocks {n_blocks}; the DSD report's {found} DMR syncs equal the frame sync of "
+          f"the pipeline's dibits [{tag}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -1694,6 +2217,9 @@ def main() -> int:
     ctcss_launches = phase_ctcss(dev, tag)
     bfm_launches, bfm_capture, bfm_audio = phase_bfm(dev, tag)
     bfm_server_launches = phase_bfm_server(bfm_capture, bfm_audio, tag)
+    data = phase_data(dev, tag)
+    atv_launches = phase_atv(dev, tag)
+    phase_data_server(data["pipe"], data["blocks"], tag)
 
     print(tag, flush=True)
     print(json.dumps({"kernels": [{
@@ -1712,6 +2238,7 @@ def main() -> int:
         "forms": k1["forms"],
         "server_launches": server_launches,
         "tx_loopback_launches": tx_loopback_launches,
+        "data_launches": {"set_a": data["k1"], "atv_set_b": atv_launches},
     }, {
         "name": "flat_decimate_tc",
         "route": "cuda",

@@ -8,8 +8,6 @@ unless regenerated. Here the document is built from the code:
   documented, or documented but not served, fails a test;
 - each channel kind's settings and report schemas come from the registry,
   the Rx demods' and the Tx modulators'.
-A route of a part not ported yet is served and answers 501 with its ROADMAP
-item (the data-channel endpoint).
 """
 
 from __future__ import annotations
@@ -46,7 +44,7 @@ PATHS = {
     "/sdrangel/deviceset/{i}/channel/{j}/audio": {
         "get": {"summary": "drain demod audio as WAV (an Rx set's; 400 on a Tx set)"}},
     "/sdrangel/deviceset/{i}/channel/{j}/data": {
-        "get": {"summary": "data-channel block: 501, the data channels are not ported yet"}},
+        "get": {"summary": "latest data-channel block (chanalyzer/LoRa/DSD/ATV/UDPSrc)"}},
     "/sdrangel/presets": {"get": {}},
     "/sdrangel/preset": {"post": {"summary": "save"}, "delete": {}},
     "/sdrangel/preset/{group}/{name}": {"delete": {}},

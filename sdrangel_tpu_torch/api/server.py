@@ -16,6 +16,7 @@ with the JAX package's path layout (a subset of the reference's):
   DELETE        /sdrangel/deviceset/{i}/channel/{j}
   GET/PUT/PATCH /sdrangel/deviceset/{i}/channel/{j}/settings
   GET           /sdrangel/deviceset/{i}/channel/{j}/report
+  GET           /sdrangel/deviceset/{i}/channel/{j}/data   a data channel's newest block
   GET/POST/DELETE /sdrangel/presets  (+ /preset load/save/delete/file)
   GET/PUT       /sdrangel/config                  whole-instance config
   GET/PATCH     /sdrangel/audio                   egress list + prefs
@@ -28,8 +29,9 @@ its sink's.
 
 Errors: a malformed request or setting is a 400, an unknown index or key a
 404, and a part not ported yet (a sharded or daemon source, the daemon sink,
-UDP/RTP egress and AF ingest, a data channel, the ATV modulator, the
-reference-TLV preset format) a 501 whose message names its ROADMAP item.
+UDP/RTP egress and AF ingest, DATV, the reference-TLV preset format) a 501
+whose message names its ROADMAP item. An unknown channel kind is a 404, the
+Tx kind sdrangel.channeltx.modatv included, as the JAX server answers.
 """
 
 from __future__ import annotations
@@ -271,12 +273,18 @@ class ApiHandler(BaseHTTPRequestHandler):
             if m := _CHANNEL_REPORT.match(p):
                 ds = s.device_sets[int(m.group(1))]
                 ch = ds.channels[int(m.group(2))]
-                return self._json(200, {
+                rep = {
                     "channelPowerDB": ch.channel_power_db,
                     "squelch": ch.squelch,
                     "audioSampleRate": ch.audio_sample_rate,
                     "audioSamples": ch.audio_samples,
-                })
+                }
+                if ch.data_blocks:
+                    rep["dataBlocks"] = ch.data_blocks
+                    rep["dataKeys"] = sorted(ch.latest_data)
+                if ch.host_report:
+                    rep.update(ch.host_report)
+                return self._json(200, rep)
             if m := _CHANNELS_REPORT.match(p):
                 # devicesetChannelsReportGet: all channels of a set at once
                 ds = s.device_sets[int(m.group(1))]
@@ -301,11 +309,20 @@ class ApiHandler(BaseHTTPRequestHandler):
                     "dvSerialSupport": int(getattr(s, "dv_serial", False)),
                 })
             if m := _CHANNEL_DATA.match(p):
-                # the data channels' block outputs (chanalyzer, LoRa, DSD,
-                # ATV, DATV); every ported kind is an audio kind
-                s.device_sets[int(m.group(1))].channels[int(m.group(2))]  # 404 first
-                raise NotImplementedError(
-                    f"data channels are not ported yet: {registry.ITEM_OTHER_RX}")
+                # the data channels' newest block (chanalyzer, LoRa, DSD,
+                # ATV, UDPSrc), arrays tail-trimmed to stay JSON-sized
+                ch = s.device_sets[int(m.group(1))].channels[int(m.group(2))]
+                if not ch.latest_data:
+                    return self._error(404, "no data yet (device not running "
+                                            "or not a data channel)")
+                out = {}
+                for k, v in ch.latest_data.items():
+                    if v.ndim == 0:
+                        out[k] = round(float(v), 5)
+                        continue
+                    a = v.reshape(-1) if v.ndim > 2 else v
+                    out[k] = np.round(a[..., -2048:], 5).tolist()
+                return self._json(200, {"dataBlocks": ch.data_blocks, "data": out})
             if p == "/sdrangel/openapi":
                 # OpenAPI 3 document of the implemented path layout +
                 # per-kind settings/report schemas, built from the code

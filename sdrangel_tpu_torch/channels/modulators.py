@@ -1,4 +1,4 @@
-"""Tx modulators: NFM, AM, SSB and WFM.
+"""Tx modulators: NFM, AM, SSB and WFM, and the ATV modulator.
 
 Reference: plugins/channeltx/mod{nfm,am,ssb,wfm}/*.cpp — per sample: pull
 the AF (tone, file, keyer), modulateSample, Interpolator to the channel
@@ -14,8 +14,9 @@ The port sums it in float64 (JAX: a float32 cumulative sum, whose error
 grows with the block), so the card and the CPU give the same phase to f32
 rounding; ROADMAP.md §3 records the divergence.
 
-The ATV modulator (ATVModConfig, atv_modulate) waits for ATV: ROADMAP.md
-queue 1, item 6.
+The ATV modulator (ATVModConfig, atv_composite, atv_modulate) is library
+code, as in the JAX package: no Tx kind runs it, and a Tx device set
+refuses sdrangel.channeltx.modatv as an unknown kind, as JAX's does.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from ..dsp import fftfilt, firdesign, nco, resampler
+from .demod_nfm import _device_taps
 
 _TWO_PI = 2.0 * np.pi
 
@@ -327,3 +329,109 @@ def wfm_modulate(
                                      _device_rf_filter(cfg, af.device))
     nco_state, out = nco.mix_block(state.nco, rf, _mod_inc(cfg, offset_hz, af.device))
     return WFMModState(up_state, new_phase, fft_state, nco_state), out
+
+
+# ---------------------------------------------------------------------------
+# ATV modulator (plugins/channeltx/modatv, analog TV)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ATVModConfig:
+    channel_rate: float
+    input_offset: float = 0.0
+    # am | fm | usb | lsb | vusb | vlsb (ATVModSettings::ATVModulation,
+    # atvmodsettings.h:52-59; v* = vestigial sideband through runAsym)
+    modulation: str = "am"
+    lines: int = 625
+    fps: float = 25.0
+    fm_deviation: float = 2_500_000.0
+    sync_level: float = 0.15  # the sync tip as a fraction of full scale
+    black_level: float = 0.3  # blanking/black pedestal
+    hsync_fraction: float = 0.08  # sync-tip width as a fraction of a line
+    amplitude: float = 0.891
+    rf_bandwidth: float = 6_000_000.0  # in-band width (m_rfBandwidth)
+    rf_opp_bandwidth: float = 750_000.0  # vestige width (m_rfOppBandwidth)
+    fft_len: int = 1024  # the SSB/VSB filter's length (atvmod.cpp m_ssbFftLen)
+
+    @property
+    def samples_per_line(self) -> int:
+        return int(round(self.channel_rate / (self.lines * self.fps)))
+
+    @functools.cached_property
+    def ssb_filter(self) -> np.ndarray:
+        """m_SSBFilter: fftfilt(0, rfBandwidth/rate) for runSSB (atvmod.cpp:85)."""
+        return fftfilt.create_filter(0.0, self.rf_bandwidth / self.channel_rate, self.fft_len)
+
+    @functools.cached_property
+    def vsb_filter(self) -> np.ndarray:
+        """runAsym's pair: the full rf_bandwidth on the kept side, the
+        rf_opp_bandwidth vestige on the other (atvmod.cpp:233-250)."""
+        return np.stack(fftfilt.create_asym_filter(
+            self.rf_opp_bandwidth / self.channel_rate, self.rf_bandwidth / self.channel_rate,
+            self.fft_len))
+
+
+class ATVModState(NamedTuple):
+    phase: torch.Tensor  # (...,) FM integrator phase
+    off_nco: nco.NCOState  # the offset carrier's phase, carried across seams
+    fft: fftfilt.FftFiltState  # SSB/VSB sideband filter overlap
+
+
+def make_atv_state(cfg: ATVModConfig, device: torch.device, batch_shape=()) -> ATVModState:
+    return ATVModState(torch.zeros(batch_shape, dtype=torch.float32, device=device),
+                       nco.make_nco(device, batch_shape),
+                       fftfilt.make_state(cfg.fft_len, device, batch_shape))
+
+
+def atv_composite(cfg: ATVModConfig, frame: torch.Tensor) -> torch.Tensor:
+    """(n_lines, width) luma in [0, 1] -> (n_lines · samples_per_line,)
+    composite video, each line [sync tip | black porch | scaled luma], the
+    line structure atvmod.cpp builds (pointsPerSync, pointsPerBP)."""
+    spl = cfg.samples_per_line
+    n_sync = max(1, int(cfg.hsync_fraction * spl))
+    n_porch = max(1, spl // 16)
+    n_active = spl - n_sync - n_porch
+    n_lines = frame.shape[0]
+    # nearest-index resample of the luma rows to the active width
+    idx = torch.from_numpy((np.arange(n_active) * frame.shape[1] / n_active).astype(np.int64))
+    luma = torch.clamp(frame[:, idx.to(frame.device)].to(torch.float32), 0.0, 1.0)
+    # levels: sync tip (the minimum) < black pedestal < white
+    video_lo = cfg.sync_level + cfg.black_level * (1.0 - cfg.sync_level)
+    comp = torch.cat([
+        torch.full((n_lines, n_sync), cfg.sync_level, dtype=torch.float32, device=frame.device),
+        torch.full((n_lines, n_porch), video_lo, dtype=torch.float32, device=frame.device),
+        video_lo + (1.0 - video_lo) * luma,
+    ], dim=-1)
+    return comp.reshape(-1)
+
+
+def atv_modulate(state: ATVModState, video: torch.Tensor, cfg: ATVModConfig
+                 ) -> tuple[ATVModState, torch.Tensor]:
+    """Composite video (..., T) in [0, 1] -> complex64 baseband at the
+    channel rate (atvmod.cpp's branches :195-250). AM: the envelope is the
+    video (positive modulation); FM: the phase integral of the deviation-
+    scaled video (summed in float64, as the port's other FM modulators);
+    USB/LSB: the SSB filter over the AM signal; vestigial USB/LSB: the
+    asymmetric filter that keeps rf_opp_bandwidth of the other sideband.
+    SSB and VSB need T to be a multiple of fft_len/2 (the overlap-add hop)."""
+    new_fft, new_phase = state.fft, state.phase
+    x = (video * cfg.amplitude).to(torch.float32).to(torch.complex64)
+    if cfg.modulation == "am":
+        y = x
+    elif cfg.modulation in ("usb", "lsb"):
+        new_fft, y = fftfilt.run_ssb(state.fft, x, _device_taps(cfg, "ssb_filter", x.device),
+                                     usb=cfg.modulation == "usb")
+    elif cfg.modulation in ("vusb", "vlsb"):
+        h = _device_taps(cfg, "vsb_filter", x.device)
+        new_fft, y = fftfilt.run_asym(state.fft, x, h[0], h[1], usb=cfg.modulation == "vusb")
+    else:  # fm, and any other name, as in the JAX function
+        dphi = (_TWO_PI * cfg.fm_deviation / cfg.channel_rate) * (video - 0.5)
+        phase, new_phase = _integrate(state.phase, dphi)
+        y = _phasor(phase, cfg.amplitude)
+    off_state = state.off_nco
+    if cfg.input_offset:
+        # the offset carrier's phase is carried, so no seam jumps
+        off_state, y = nco.mix_block(
+            state.off_nco, y, nco.freq_to_increment(cfg.input_offset, cfg.channel_rate))
+    return ATVModState(new_phase, off_state, new_fft), y

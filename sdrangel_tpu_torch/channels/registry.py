@@ -1,9 +1,10 @@
 """Channel-type registry — the plugin-manager role (pluginmanager.{h,cpp}):
 channel kinds keyed by the reference's URIs. The port registers the NFM,
-AM, SSB, WFM and broadcast FM receivers (REGISTRY) and the NFM, AM, SSB and WFM
-modulators of the Tx device sets (TX_KINDS; runtime/tx.py holds their
-modulate functions); the other channels wait (ROADMAP.md, queue 1), and
-naming one raises NotImplementedError with its queue item.
+AM, SSB, WFM and broadcast FM receivers and the data channels (channel
+analyzer, LoRa, DSD, ATV and UDPSrc) in REGISTRY, and the NFM, AM, SSB and
+WFM modulators of the Tx device sets in TX_KINDS (runtime/tx.py holds their
+modulate functions). DATV waits (ROADMAP.md, queue 1): naming it raises
+NotImplementedError with its queue item.
 
 The session and the REST server read the settable fields from here: each
 kind's schema is derived from its config dataclass, so it cannot drift from
@@ -17,7 +18,10 @@ from typing import Any, Callable
 import math
 from fractions import Fraction
 
-from . import demod_am, demod_bfm, demod_nfm, demod_ssb, demod_wfm, modulators
+import torch
+
+from . import (chanalyzer, demod_am, demod_atv, demod_bfm, demod_dsd, demod_lora, demod_nfm,
+               demod_ssb, demod_wfm, modulators, udpsrc)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +44,16 @@ class ChannelKind:
     # (channel_rate, settings) -> a factor the block must hold at the
     # channel rate, for a demod whose own resamplers need it
     block_factor: Callable[[float, dict], int] | None = None
+    # the block must make the channel-to-48 kHz ratio integral: the kinds
+    # that resample to 48 kHz; the chanalyzer, LoRa and ATV do not
+    needs_audio_ratio: bool = True
+    # data kinds: Outputs -> {name: float32, int32 or bool tensor}, complex
+    # outputs split into real planes on the device
+    adapter: Callable[[Any], dict] | None = None
+    # data kinds: the adapter's output names (the report schema's dataKeys)
+    data_keys: tuple = ()
+    # report sections the session adds on the host ("dsd": the frame sync)
+    host_report_keys: tuple = ()
 
 
 REGISTRY: dict[str, ChannelKind] = {}
@@ -69,22 +83,16 @@ _PIPELINE_FIELDS = {"channel_rate", "input_offset", "block_in", "block_af"}
 SESSION_KEYS = {"inputFrequencyOffset", "audioFile", "toneFrequency", "afFile", "cwText",
                 "cwWpm"}
 
-ITEM_OTHER_RX = ("ROADMAP.md queue 1, item 6 (the other channels: the other Rx channels, "
-                 "their host decoders and ATV's modulator)")
+ITEM_DATV = ("ROADMAP.md queue 1, item 6e (DATV: demod_datv.py with dvbs.py, tsdemux.py, "
+             "fftfilt.create_rrc_filter, datvContinuous and io/fec.py)")
 ITEM_UDP_RTP = ("ROADMAP.md queue 1, item 12 (UDP/RTP egress and ingest: io/udp.py, "
                 "io/rtp.py)")
 #: the JAX package's channel kinds that the port does not carry yet
-UNPORTED_KINDS = {
-    uri: ITEM_OTHER_RX for uri in (
-        "sdrangel.channel.chanalyzer",
-        "sdrangel.channel.lorademod", "sdrangel.channel.dsddemod",
-        "sdrangel.channel.demodatv", "sdrangel.channel.demoddatv",
-        "sdrangel.channel.udpsrc", "sdrangel.channeltx.modatv")
-}
+UNPORTED_KINDS = {"sdrangel.channel.demoddatv": ITEM_DATV}
 #: the JAX session's per-channel keys that the port does not carry yet
 UNPORTED_KEYS = {
     "audioUdp": ITEM_UDP_RTP, "audioRtp": ITEM_UDP_RTP, "udpAddress": ITEM_UDP_RTP,
-    "udpPort": ITEM_UDP_RTP, "udpFormat": ITEM_UDP_RTP, "datvContinuous": ITEM_OTHER_RX,
+    "udpPort": ITEM_UDP_RTP, "udpFormat": ITEM_UDP_RTP, "datvContinuous": ITEM_DATV,
     "afUdp": ITEM_UDP_RTP,
 }
 
@@ -105,7 +113,14 @@ def requested_rate(uri: str, settings: dict) -> float:
     """The bandwidth a channel asks of the channelizer (the reference's
     demods ask through DSPConfigureChannelizer): the audio kinds the 48 kHz
     class; broadcast FM its whole MPX (pilot, stereo and RDS up to 57 kHz
-    plus the deviation: rfBandwidth, 180 kHz by default in bfmdemod.cpp)."""
+    plus the deviation: rfBandwidth, 180 kHz by default in bfmdemod.cpp);
+    the data channels theirs from their own signal parameters."""
+    if uri == "sdrangel.channel.demodatv":
+        return float(settings.get("rf_bandwidth", 6_000_000.0))
+    if uri == "sdrangel.channel.lorademod":
+        return 2.0 * float(settings.get("bandwidth", 125_000.0))
+    if uri == "sdrangel.channel.chanalyzer":
+        return max(48_000.0, 2.5 * float(settings.get("bandwidth", 5000.0)))
     if uri == "sdrangel.channel.bfm":
         return float(settings.get("rf_bandwidth", 180_000.0))
     return 48_000.0
@@ -139,14 +154,21 @@ def validate_settings(uri: str, settings: dict, direction: str = "rx") -> None:
 
 def report_schema(uri: str) -> dict:
     """A kind's channel report (the role of the reference's per-plugin
-    report DTOs): every ported kind is an audio kind with the standard
-    meters (broadcast FM's audio frames are stereo)."""
-    return {"type": "object", "properties": {
+    report DTOs): the standard meters; a data kind adds its block count,
+    its adapter's output names and its host report sections."""
+    props = {
         "channelPowerDB": {"type": "number"},
         "squelch": {"type": "boolean"},
         "audioSampleRate": {"type": "number"},
         "audioSamples": {"type": "integer"},
-    }}
+    }
+    kind = REGISTRY.get(uri)
+    if kind is not None and kind.output == "data":
+        props["dataBlocks"] = {"type": "integer"}
+        props["dataKeys"] = {"type": "array", "items": {"type": "string"},
+                             "enum": [list(kind.data_keys)]}
+        props.update({key: {"type": "object"} for key in kind.host_report_keys})
+    return {"type": "object", "properties": props}
 
 
 _FULL_DYN = frozenset({"offset_hz", "squelch_db", "volume"})
@@ -190,6 +212,82 @@ register(ChannelKind(
     "sdrangel.channel.bfm", demod_bfm.BFMConfig, demod_bfm.make_state, _bfm_process_engine,
     needs_fft_hop=True, dynamic_fields=_FULL_DYN, meters=demod_bfm.meters,
     block_factor=_bfm_block_factor,
+))
+
+
+# -- the data channels (reference plugins chanalyzer, demodlora, demoddsd,
+# demodatv, udpsrc): their outputs leave the device as named arrays ----------
+
+
+def _fields(outs) -> dict:
+    """An Outputs NamedTuple whose fields are its data keys."""
+    return dict(outs._asdict())
+
+
+def _chanalyzer_adapter(outs: chanalyzer.ChanAnalyzerOutputs) -> dict:
+    return {"iq_real": outs.iq.real, "iq_imag": outs.iq.imag, "spectrum": outs.spectrum,
+            "channelPowerDB": outs.channel_power_db}
+
+
+def _dsd_adapter(outs: demod_dsd.DSDOutputs) -> dict:
+    return {"dibits": outs.dibits, "soft_symbols": outs.soft_symbols,
+            "squelch_open": outs.squelch_open.to(torch.int32)}
+
+
+def _udpsrc_adapter(outs: udpsrc.UdpSrcOutputs) -> dict:
+    return {"iq_real": outs.iq.real, "iq_imag": outs.iq.imag, "scalar": outs.scalar,
+            "squelch": outs.squelch_open}
+
+
+def _lora_block_factor(channel_rate: float, settings: dict) -> int:
+    return demod_lora.LoRaConfig(
+        channel_rate=channel_rate, bandwidth=float(settings.get("bandwidth", 125_000.0)),
+        spread_factor=int(settings.get("spread_factor", 7))).block_factor()
+
+
+def _dsd_block_factor(channel_rate: float, settings: dict) -> int:
+    """The 48 kHz stream splits into whole symbols (sps = 48000/4800 = 10):
+    block·q/p audio samples divisible by 10 make the block a multiple of
+    10·p/gcd(q, 10)."""
+    frac = Fraction(channel_rate / 48_000.0).limit_denominator(1 << 20)
+    return 10 * frac.numerator // math.gcd(frac.denominator, 10)
+
+
+def _atv_block_factor(channel_rate: float, settings: dict) -> int:
+    """Whole lines a block keep the line grid aligned to the block."""
+    return demod_atv.ATVConfig(
+        channel_rate=channel_rate, standard=str(settings.get("standard", "pal625")),
+        lines=int(settings.get("lines", 0)), fps=float(settings.get("fps", 0.0)),
+    ).samples_per_line
+
+
+register(ChannelKind(
+    "sdrangel.channel.chanalyzer", chanalyzer.ChanAnalyzerConfig, chanalyzer.make_state,
+    chanalyzer.process, needs_fft_hop=True, output="data", needs_audio_ratio=False,
+    adapter=_chanalyzer_adapter, data_keys=("iq_real", "iq_imag", "spectrum", "channelPowerDB"),
+))
+register(ChannelKind(
+    "sdrangel.channel.lorademod", demod_lora.LoRaConfig, demod_lora.make_state,
+    demod_lora.process, block_factor=_lora_block_factor, output="data",
+    needs_audio_ratio=False, adapter=_fields,
+    data_keys=("symbols", "magnitudes", "snr_est"),
+))
+register(ChannelKind(
+    "sdrangel.channel.dsddemod", demod_dsd.DSDConfig, demod_dsd.make_state, demod_dsd.process,
+    block_factor=_dsd_block_factor, output="data", adapter=_dsd_adapter,
+    data_keys=("dibits", "soft_symbols", "squelch_open"), host_report_keys=("dsd",),
+))
+register(ChannelKind(
+    "sdrangel.channel.demodatv", demod_atv.ATVConfig, demod_atv.make_state, demod_atv.process,
+    block_factor=_atv_block_factor, needs_fft_hop=True, output="data",
+    needs_audio_ratio=False, adapter=_fields,
+    data_keys=("lines", "sync_phase", "sync_quality"),
+))
+register(ChannelKind(
+    "sdrangel.channel.udpsrc", udpsrc.UdpSrcConfig, udpsrc.make_state, udpsrc.process,
+    needs_fft_hop=True, output="data", adapter=_udpsrc_adapter,
+    data_keys=("iq_real", "iq_imag", "scalar", "squelch"),
+    dynamic_fields=frozenset({"offset_hz", "squelch_db"}),
 ))
 
 

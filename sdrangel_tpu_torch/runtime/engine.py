@@ -102,15 +102,14 @@ class RxPipeline:
         ]
         self.kinds = [REGISTRY[c.uri] for c in channels]
         self.base_block = self._solve_block_size(block_size)
-        self.demod_cfgs = [
-            kind.config_cls(
-                channel_rate=plan.channel_rate,
-                input_offset=plan.residual_offset,
-                block_in=self.base_block >> len(plan.signs),
-                **spec.settings,
-            )
-            for spec, plan, kind in zip(channels, self.plans, self.kinds)
-        ]
+        self.demod_cfgs = []
+        for spec, plan, kind in zip(channels, self.plans, self.kinds):
+            kw = dict(channel_rate=plan.channel_rate, input_offset=plan.residual_offset,
+                      **spec.settings)
+            # the channel analyzer and ATV have no block-coupled resampler
+            if any(f.name == "block_in" for f in dataclasses.fields(kind.config_cls)):
+                kw["block_in"] = self.base_block >> len(plan.signs)
+            self.demod_cfgs.append(kind.config_cls(**kw))
         self.spectrum_cfg = spectrum_cfg or dsp_spectrum.SpectrumConfig(
             fft_size=1024, averaging_mode="moving", averaging_n=8)
         # i16 cen capture without corrections: the raw int16 block goes
@@ -123,22 +122,26 @@ class RxPipeline:
 
     def _solve_block_size(self, requested: int | None) -> int:
         """Baseband block length divisible as every stage needs: ×4 for the
-        rotation patterns, ×2^stages for each channel's cascade, the
-        resampler's rational numerator p at the channel rate, and, for a
-        kind that runs an fftfilt, its hop (fft_len/2) at the channel rate
-        and, through the resampler, at the audio rate."""
+        rotation patterns, ×2^stages for each channel's cascade, for a kind
+        that resamples to 48 kHz the resampler's rational numerator p at the
+        channel rate, and, for a kind that runs an fftfilt, its hop
+        (fft_len/2) at the channel rate and, through a 48 kHz resampler, at
+        the audio rate."""
         need = 4 << self.frontend.log2_decim
         for spec, plan, kind in zip(self.channel_specs, self.plans, self.kinds):
             k = len(plan.signs)
             frac = Fraction(plan.channel_rate / 48000.0).limit_denominator(1 << 20)
             p = frac.numerator
-            need = math.lcm(need, 4 << k, p << k)
+            need = math.lcm(need, 4 << k)
+            if kind.needs_audio_ratio:
+                need = math.lcm(need, p << k)
             if kind.needs_fft_hop:
                 # the fftfilt runs at the channel rate (WFM) or the audio
                 # rate (SSB): whole hops at both
                 hop = _config_field(kind.config_cls, spec.settings, "fft_len") // 2
-                need = math.lcm(need, hop << k,
-                                (p * hop // math.gcd(frac.denominator, hop)) << k)
+                need = math.lcm(need, hop << k)
+                if kind.needs_audio_ratio:
+                    need = math.lcm(need, (p * hop // math.gcd(frac.denominator, hop)) << k)
             if kind.block_factor is not None:
                 need = math.lcm(need, kind.block_factor(plan.channel_rate, spec.settings) << k)
         block = need
@@ -178,8 +181,8 @@ class RxPipeline:
         """The JAX RxPipeline's state (fetched as numpy, e.g. with
         jax.tree.map(np.asarray, state)) as this pipeline's state. Fields are
         matched by name against `init_state()`, so every field the port's
-        states hold crosses over, sync AM's, the AF squelch's and broadcast
-        FM's included. A complex64 flat tail
+        states hold crosses over, sync AM's, the AF squelch's, broadcast
+        FM's and the data channels' included. A complex64 flat tail
         becomes the fused-ingest int16 raw tail (×32768, exact for values
         that came from int16)."""
         return _from_numpy(self.init_state(), tree)
@@ -208,7 +211,8 @@ class RxPipeline:
     def step(self, state: dict, raw: torch.Tensor, dyn: list[dict] | None = None):
         """raw: (device_block, 2) raw ADC samples on the pipeline's device.
         dyn: optional per-channel overrides (see default_dyn).
-        Returns (state', outs) with outs["channels"][i] = {audio, power, meters}."""
+        Returns (state', outs) with outs["channels"][i] = {audio, power,
+        meters}, or for a data kind {data: {name: tensor}, power}."""
         f = self.frontend
         if raw.device.type != self.device.type:
             raise ValueError(f"raw block on {raw.device}, pipeline on {self.device}")
@@ -230,9 +234,11 @@ class RxPipeline:
         for i, (plan, kind, cfg) in enumerate(zip(self.plans, self.kinds, self.demod_cfgs)):
             cstate, y = chan.channelize(state["chan"][i], bb, plan)
             d = dict(dyn[i]) if dyn is not None else {}
-            dstate, audio = kind.process(state["demod"][i], y, cfg, **d)
+            dstate, result = kind.process(state["demod"][i], y, cfg, **d)
+            entry = ({"data": kind.adapter(result)} if kind.output == "data"
+                     else {"audio": result})
             # channel power meter (nfmdemod.h:153-170 magsq average)
-            entry = {"audio": audio, "power": torch.mean(y.real ** 2 + y.imag ** 2)}
+            entry["power"] = torch.mean(y.real ** 2 + y.imag ** 2)
             if kind.meters is not None:
                 entry.update(kind.meters(dstate, cfg, d))
             chan_states.append(cstate)

@@ -30,10 +30,15 @@ session on purpose:
   the channels it was computed for, and only the part of a channel removed
   since is dropped.
 
+A data channel (chanalyzer, LoRa, DSD, ATV, UDPSrc) publishes its newest
+block's arrays (`latest_data`, the data route of api/server.py); every block
+of a burst is published in order, so the DSD frame sync on the host
+(channels/dsdsync.py) sees each block's dibits.
+
 The Rx and Tx sessions on the one-pipeline worker are what the port
 carries. The sharded worker, the daemon source and sink, UDP/RTP egress and
-AF ingest, the data channels' host decoders and the reference-TLV preset
-format raise NotImplementedError naming their ROADMAP item.
+AF ingest, DATV and the reference-TLV preset format raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from ..channels import registry
+from ..channels import dsdsync, registry
 from ..channels.registry import REGISTRY
 from ..dsp import spectrum as dsp_spectrum
 from ..dsp.types import INPUT_FORMATS
@@ -104,6 +109,41 @@ class ChannelState:
     audio_samples: int = 0
     # published audio blocks not yet drained (the AudioFifo role)
     audio: list = dataclasses.field(default_factory=list, repr=False)
+    # data channels: blocks published, the newest block's arrays, and the
+    # host's decode of them (the DSD frame sync's "dsd" report)
+    data_blocks: int = 0
+    latest_data: dict | None = dataclasses.field(default=None, repr=False)
+    host_report: dict | None = None
+    dsd_sync: "DsdHostSync | None" = dataclasses.field(default=None, repr=False)
+
+
+class DsdHostSync:
+    """The frame sync over a DSD channel's dibit stream, the first stage
+    DSDcc runs for the reference (dsddecoder.h:61-63 getSyncType,
+    getFrameTypeText): DMR/YSF/D-Star sync correlation and frame typing,
+    AMBE voice-frame slicing (the hand-off to the vocoder, which stays
+    outside) and NXDN/dPMR typing (dsddemod.cpp:655-682), fed each block's
+    dibits in order."""
+
+    def __init__(self):
+        self.searcher = dsdsync.SyncSearcher()
+        self.voice = dsdsync.VoiceExtractor()
+        self.nxdn = dsdsync.NxdnDpmrDecoder()
+        self.frames: list = []
+
+    def feed(self, dibits: np.ndarray) -> dict:
+        """One block's dibits in; the channel's "dsd" report out."""
+        dibits = dibits.reshape(-1)
+        hits = self.searcher.feed(dibits)
+        frames = self.voice.feed(dibits, hits)
+        if frames:
+            self.frames = (self.frames + frames)[-32:]
+        self.nxdn.feed(dibits, hits)
+        report = self.searcher.report()
+        report["ambeFrameCount"] = self.voice.total
+        report["ambeFrames"] = list(self.frames)
+        report.update(self.nxdn.report())
+        return report
 
 
 @dataclasses.dataclass
@@ -548,6 +588,15 @@ class DeviceSet:
                 if id(ch) not in live:
                     continue
                 ch.channel_power_db = float(10.0 * np.log10(max(float(out["power"]), 1e-12)))
+                if "data" in out:
+                    # the squelch meter of a data kind stays as it is: JAX's
+                    # session sets it only in the UDP egress (item 12)
+                    ch.latest_data = out["data"]
+                    ch.data_blocks += 1
+                    if ch.uri == "sdrangel.channel.dsddemod":
+                        ch.dsd_sync = ch.dsd_sync or DsdHostSync()
+                        ch.host_report = {"dsd": ch.dsd_sync.feed(ch.latest_data["dibits"])}
+                    continue
                 audio = out["audio"]
                 # the demod's own gate state where it has one (nfmdemod.h getters)
                 ch.squelch = (bool(out["squelch"]) if "squelch" in out

@@ -573,3 +573,51 @@ def _stereo_fm(size: int, rate: float) -> np.ndarray:
     mpx = 0.45 * left * (1.0 + np.sin(2 * np.pi * 38_000.0 * tt)) + 0.1 * np.sin(
         2 * np.pi * 19_000.0 * tt)
     return (0.4 * np.exp(2j * np.pi * 75_000.0 * np.cumsum(mpx) / rate)).astype(np.complex64)
+
+
+@pytest.mark.parametrize("uri,offset,requested,settings", [
+    ("sdrangel.channel.lorademod", 0.0, 250_000.0, {"spread_factor": 7}),
+    ("sdrangel.channel.dsddemod", 100_000.0, 48_000.0, {}),
+    ("sdrangel.channel.chanalyzer", 100_000.0, 48_000.0, {"ssb": True}),
+    ("sdrangel.channel.udpsrc", 100_000.0, 48_000.0, {"fmt": "nfm"}),
+    ("sdrangel.channel.demodatv", 0.0, 6e6, {"standard": "hskip", "lines": 64, "fps": 25.0}),
+])
+def test_data_channels_on_card_match_cpu(cuda_device, uri, offset, requested, settings):
+    """Each data kind on the card against the CPU pipeline over 3 blocks:
+    K1 once per block, the float outputs ≥ 80 dB (the dB spectrum as
+    power), the integer outputs equal (DSD's dibits where the CPU's soft
+    value is clear of a slicer threshold: the squelch's first 480 samples
+    are zeros whose FFT-filtered ±1e-9 residue falls either side of 0). An
+    FM carrier feeds all but ATV, which gets AM video lines (on a constant
+    envelope its sync notch is rounding, ~1e-5)."""
+    chans = [peng.ChannelSpec(uri, offset, settings, requested)]
+    cfg = peng.DeviceConfig(768_000.0, log2_decim=1)
+    gpu = peng.RxPipeline(cfg, chans, cuda_device, block_size=32_768)
+    cpu = peng.RxPipeline(cfg, chans, "cpu", block_size=32_768)
+    if uri == "sdrangel.channel.demodatv":  # 480 capture samples a line, 8 % sync tip
+        line = np.where(np.arange(480) < 38, 0.0, np.linspace(0.3, 1.0, 480))
+        video = np.tile(line, 3 * gpu.device_block // 480 + 1)[:3 * gpu.device_block]
+        raw = testsource.to_iq_int16((0.1 + 0.7 * video).astype(np.complex64))
+    else:
+        source = testsource.TestSourceConfig(sample_rate=768_000.0, amplitude=0.4,
+                                             modulation="fm", carrier_freq=offset + 1500.0)
+        raw = testsource.to_iq_int16(testsource.generate(source, 3 * gpu.device_block))
+    launches = flat_decimate.launches
+    got = [o["channels"][0]["data"] for _, o in gpu.run(lambda b, c: raw[b * c:(b + 1) * c], 3)]
+    want = [o["channels"][0]["data"] for _, o in cpu.run(lambda b, c: raw[b * c:(b + 1) * c], 3)]
+    assert flat_decimate.launches == launches + 3
+    for g, w in zip(got, want):
+        for k, wv in w.items():
+            gv = g[k]
+            assert gv.shape == wv.shape and gv.dtype == wv.dtype, k
+            if k == "dibits":
+                soft = w["soft_symbols"]
+                level = soft / max(1.5 * float(np.abs(soft).mean()), 1e-6)
+                clear = (np.abs(soft) > 2e-5) & (np.abs(np.abs(level) - 2 / 3) > 1e-3)
+                np.testing.assert_array_equal(gv[clear], wv[clear])
+            elif wv.dtype != np.float32:
+                np.testing.assert_array_equal(gv, wv, err_msg=k)
+            elif k == "spectrum":
+                assert agreement_db(10.0 ** (wv / 10.0), 10.0 ** (gv / 10.0)) >= 80.0
+            elif np.any(wv != 0.0):
+                assert agreement_db(wv, gv) >= 80.0, k

@@ -305,7 +305,7 @@ def _tx_preset(s, source, channels=()):
 
 @pytest.mark.parametrize("case", [
     "sharded", "daemonsource", "audioUdp", "audioRtp", "udpAddress",
-    "reference_export", "tlv_import", "data_channel", "daemonsink", "afUdp", "modatv",
+    "reference_export", "tlv_import", "data_channel", "daemonsink", "afUdp",
 ])
 def test_left_out_parts_raise_with_their_roadmap_item(tmp_path, case):
     s = psession.Session(device=CPU, preset_dir=str(tmp_path))
@@ -314,14 +314,13 @@ def test_left_out_parts_raise_with_their_roadmap_item(tmp_path, case):
         "sharded": "item 9", "daemonsource": "item 11",
         "audioUdp": "item 12", "audioRtp": "item 12", "udpAddress": "item 12",
         "reference_export": "item 13", "tlv_import": "item 13", "data_channel": "item 6",
-        "daemonsink": "item 11", "afUdp": "item 12", "modatv": "item 6",
+        "daemonsink": "item 11", "afUdp": "item 12",
     }[case]
     actions = {
         "daemonsink": lambda: _tx_preset(s, {"kind": "daemonsink"}),
         "afUdp": lambda: _tx_preset(s, {}, [{
             "uri": "sdrangel.channeltx.modnfm", "inputFrequencyOffset": 0.0,
             "settings": {"afUdp": "127.0.0.1:9999"}}]),
-        "modatv": lambda: ds.add_channel("sdrangel.channeltx.modatv"),
         "sharded": lambda: ds.update_source({"sharded": True}),
         "daemonsource": lambda: ds.update_source({"kind": "daemonsource"}),
         "audioUdp": lambda: ds.add_channel(NFM, {"audioUdp": "127.0.0.1:9999"}),
@@ -337,6 +336,58 @@ def test_left_out_parts_raise_with_their_roadmap_item(tmp_path, case):
         actions[case]()
     assert len(s.device_sets) == 1 and s.device_sets[0] is ds  # nothing was replaced
     assert ds.channels == [] and not ds.source.file_path
+
+
+DSD = "sdrangel.channel.dsddemod"
+
+
+def _dmr_capture(path, n):
+    """A .sdriq capture at RATE of DMR voice bursts (the sync and random
+    payload) as 4FSK at +20 kHz, ±2.7 kHz outer deviation, with noise."""
+    from sdrangel_tpu_torch.channels import dsdsync
+
+    rng = np.random.default_rng(91)
+    n_sym = int(n / RATE * 4800) + 2
+    bursts = [np.concatenate([dsdsync.DMR_BS_VOICE, rng.integers(0, 4, 120)])
+              for _ in range(n_sym // dsdsync.DMR_BURST_DIBITS + 1)]
+    dibits = np.concatenate(bursts)[:n_sym]
+    m = (np.arange(n) * 4800.0 / RATE).astype(np.int64)
+    freq = dsdsync.DIBIT_LEVELS[dibits].astype(np.float64)[m] / 3.0 * 2700.0 + 20_000.0
+    iq = 0.3 * np.exp(2j * np.pi * np.cumsum(freq) / RATE)
+    iq = iq + 0.003 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    sdriq.write(path, iq.astype(np.complex64), sample_rate=int(RATE), sample_size=16,
+                timestamp=0)
+    return path
+
+
+@pytest.mark.parametrize("publish_every", [1, 3])
+def test_dsd_host_report_equals_jax_session(tmp_path, publish_every):
+    """A DSD channel on a DMR capture through the port's DeviceSet and the
+    JAX DeviceSet: the same "dsd" host report (sync counts, the last sync,
+    AMBE frames), the same dibits in the newest block, the same block count,
+    whether the port reads one block or bursts of 3 back: the frame sync
+    sees every block's dibits in order."""
+    from sdrangel_tpu.runtime.session import DeviceSet as JaxDeviceSet
+
+    path = _dmr_capture(str(tmp_path / "dmr.sdriq"), 6 * 262_144)
+    source = {"kind": "filesource", "file_path": path, "log2_decim": 3, "run_blocks": 6,
+              "publish_every": publish_every}
+    settings = {"inputFrequencyOffset": 20_000.0, "fm_deviation": 2700.0}
+    port = _port_set(source, [(DSD, settings)])
+    jax_ds = JaxDeviceSet(0)
+    jax_ds.update_source(source)
+    jax_ds.add_channel(DSD, dict(settings))
+    _run(port)
+    _run(jax_ds)
+    assert port.blocks_processed == jax_ds.blocks_processed == 6
+    pc, jc = port.channels[0], jax_ds.channels[0]
+    assert pc.data_blocks == jc.data_blocks == 6
+    np.testing.assert_array_equal(pc.latest_data["dibits"], jc.latest_data["dibits"])
+    assert pc.host_report == jc.host_report
+    report = pc.host_report["dsd"]
+    assert report["syncCounts"].get("dmr:bs_voice", 0) >= 20, report["syncCounts"]
+    assert report["ambeFrameCount"] >= 60
+    assert pc.audio_samples == 0 and pc.audio == []
 
 
 def test_jax_presets_load_with_inert_defaults():

@@ -477,7 +477,7 @@ def test_tx_pipeline_pins_f32_precision_and_refuses():
     with pytest.raises(KeyError):
         ptx.TxPipeline(ptx.TxDeviceConfig(96_000.0),
                        [ptx.TxChannelSpec("sdrangel.channel.nfmdemod", 0.0, {})], device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
+    with pytest.raises(KeyError):  # no Tx kind, as JAX's TxPipeline (tx.py:25-28)
         ptx.TxPipeline(ptx.TxDeviceConfig(96_000.0),
                        [ptx.TxChannelSpec("sdrangel.channeltx.modatv", 0.0, {})], device=CPU)
     if not torch.cuda.is_available():
