@@ -1,5 +1,6 @@
 """Drive the PyTorch port's Rx product path, its channel-bank gear, its
-receivers, Tx and data channels once on one CUDA card.
+receivers, Tx, data channels, DATV and daemon transport once on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -129,6 +130,38 @@ power limit as nvidia-smi reports them):
          HTTP: each data route within one 5-place rounding step of the
          pipeline's third block, dataBlocks 3, the DSD report equal to the
          frame sync of the pipeline's dibits.
+  11. the GF(256) layer's paths (no kernel of their own; K1 in front):
+     (a) DATV at full width: DVB-S at 250 kS/s QPSK, FEC 1/2 (the
+         reduced-bandwidth class amateur DATV stations transmit), carrying
+         PAT, PMT and an H.264 PES of programme 7 between random packets,
+         encoded by the port's dvbs and tsdemux, shaped with
+         create_rrc_filter (rolloff 0.35) on the card at Es/N0 10 dB in an
+         8 MS/s int16 capture; RxPipeline ÷8 to the channel's 1 MS/s (4
+         samples a symbol), 4 blocks of 8,388,608 (~1 s): K1 once per
+         block; the host FEC (recover_ts) over the first 2 blocks' soft
+         symbols, timed: RS fails on no packet, the packets equal the sent
+         ones from a group head on, the demux finds programme 7's H.264
+         stream; a shorter FEC 3/4 capture recovers likewise; ≥ 80 dB card
+         against CPU on 2 blocks; the device's busy share by torch.profiler;
+     (b) (a)'s first block as a .sdriq through `python -m
+         sdrangel_tpu_torch server --device cuda` in its own process: a
+         DATV channel with datvContinuous over 16 session blocks, its report
+         polled through the run (each pass's host seconds: the worker's
+         stall); rounds ≥ 1, packets > 100, rsFailed 0, programme 7, and
+         /data carrying soft_i/soft_q;
+     (c) the daemon loopback: the remote radio, a Tx set on the card in a
+         `server` process of its own (NFM +20 kHz, a 1 kHz tone, 5 kHz
+         deviation, 1.536 MS/s ×8) into a daemonsink with 16 parity
+         blocks, a relay process dropping every 32nd datagram, and in this
+         process an Rx set on the card whose daemonsource feeds K1 ÷4 and
+         NFM at +20 kHz:
+         K1 once per Rx block, blocks recovered, no frame failed after the
+         first second, the tone above 25 dB over the longest active run of
+         ≥ 2 s, the native codec built; superframes and datagrams a second;
+     (d) the codec alone: native and NumPy GF(256) byte-equal on one
+         superframe (128 × 512 B, 16 parity blocks, 16 erasures), their
+         host times, and make_superframe's datagrams against a plain
+         re-encode.
 Then a JSON line of the kernels, and last the ok line. Any failed check
 raises: the script then exits non-zero and prints no ok line. It needs a
 card; without one it exits non-zero at once.
@@ -142,6 +175,7 @@ import json
 import os
 import re
 import socket
+import struct
 import subprocess
 import sys
 import tempfile
@@ -149,6 +183,7 @@ import threading
 import time
 import urllib.request
 import wave
+import zlib
 
 import numpy as np
 import torch
@@ -158,7 +193,7 @@ from torch.autograd import DeviceType
 
 import sdrangel_tpu_torch.dsp.decimators as dec
 from sdrangel_tpu_torch.api.server import make_server
-from sdrangel_tpu_torch.io import sdriq, testsource, wav
+from sdrangel_tpu_torch.io import daemon, fec, sdriq, testsource, wav
 from sdrangel_tpu_torch.kernels import build
 from sdrangel_tpu_torch.kernels import decimator as kdec
 from sdrangel_tpu_torch.kernels import flat_decimate as k1_kernel
@@ -178,7 +213,7 @@ from sdrangel_tpu_torch.profile_product import (
     chainsharded_offsets,
     receiver_pipeline,
 )
-from sdrangel_tpu_torch.channels import demod_bfm, dsdsync
+from sdrangel_tpu_torch.channels import demod_bfm, demod_datv, dsdsync, dvbs, tsdemux
 from sdrangel_tpu_torch.channels.modulators import (
     ATVModConfig,
     atv_composite,
@@ -187,6 +222,7 @@ from sdrangel_tpu_torch.channels.modulators import (
 )
 from sdrangel_tpu_torch.channels.registry import requested_rate
 from sdrangel_tpu_torch.dsp import channelizer as chan
+from sdrangel_tpu_torch.dsp import fftfilt
 from sdrangel_tpu_torch.dsp import interpolators as interp
 from sdrangel_tpu_torch.dsp import phaselock
 from sdrangel_tpu_torch.dsp import scope as dsp_scope
@@ -2032,6 +2068,44 @@ def _trimmed(v: np.ndarray):
     return np.round(a[..., -2048:], 5)
 
 
+@contextlib.contextmanager
+def server_process(tmp: str, what: str):
+    """`python -m sdrangel_tpu_torch server --device cuda` on a free port in
+    its own process, up and answering: yields (its base URL, a list that
+    holds its log once it has stopped)."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    log = open(os.path.join(tmp, "server.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sdrangel_tpu_torch", "server", "--device", DEVICE,
+         "--api-port", str(port)], cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    server_log: list[str] = []
+    try:
+        t0 = time.perf_counter()
+        while True:
+            try:
+                if http(base, "/sdrangel")[0] == 200:
+                    break
+            except OSError:
+                pass
+            check(proc.poll() is None and time.perf_counter() - t0 < 120,
+                  f"{what}: the server did not come up")
+            time.sleep(0.2)
+        yield base, server_log
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.seek(0)
+        server_log.append(log.read())
+        log.close()
+
+
 def phase_data_server(pipe: RxPipeline, blocks: list[np.ndarray], tag: str) -> None:
     """Set A's first blocks as a .sdriq, played by `python -m
     sdrangel_tpu_torch server` in its own process, driven over HTTP only,
@@ -2043,31 +2117,13 @@ def phase_data_server(pipe: RxPipeline, blocks: list[np.ndarray], tag: str) -> N
     for raw in blocks[:n_blocks]:
         state, flat = pipe.step_packed(state, pipe.upload(raw), pipe.default_dyn())
         outs.append(pipe.to_host(flat))
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    base = f"http://127.0.0.1:{port}"
     with tempfile.TemporaryDirectory() as tmp:
-        log = open(os.path.join(tmp, "server.log"), "w+")
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "sdrangel_tpu_torch", "server", "--device", DEVICE,
-             "--api-port", str(port)], cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
-        try:
-            path = os.path.join(tmp, "set_a.sdriq")
-            writer = sdriq.SdriqWriter(path, sample_rate=int(DATA_RATE))
-            for b in blocks[:n_blocks]:
-                writer.write(b)
-            writer.close()
-            t0 = time.perf_counter()
-            while True:
-                try:
-                    if http(base, "/sdrangel")[0] == 200:
-                        break
-                except OSError:
-                    pass
-                check(proc.poll() is None and time.perf_counter() - t0 < 120,
-                      "data server: the server did not come up")
-                time.sleep(0.2)
+        path = os.path.join(tmp, "set_a.sdriq")
+        writer = sdriq.SdriqWriter(path, sample_rate=int(DATA_RATE))
+        for b in blocks[:n_blocks]:
+            writer.write(b)
+        writer.close()
+        with server_process(tmp, "data server") as (base, logs):
             check(http(base, "/sdrangel/devicesets", "POST")[0] == 201, "data server: add set")
             code, reply = http(base, "/sdrangel/deviceset/0/device/settings", "PATCH", {
                 "kind": "filesource", "file_path": path, "log2_decim": DATA_LOG2,
@@ -2107,16 +2163,7 @@ def phase_data_server(pipe: RxPipeline, blocks: list[np.ndarray], tag: str) -> N
             check(entry["state"] == "idle" and not entry["error"]
                   and warm["blocksProcessed"] == 2 * n_blocks,
                   f"data server: second run {entry['state']} {entry['error']!r} {warm}")
-        finally:
-            proc.terminate()
-            try:
-                proc.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
-            log.seek(0)
-            server_log = log.read()
-            log.close()
+    server_log = logs[0]
     worst, worst_at = 0.0, ""
     for j, ((code, reply), rep) in enumerate(zip(data, reports)):
         check(code == 200 and reply["dataBlocks"] == n_blocks == rep["dataBlocks"],
@@ -2150,6 +2197,386 @@ def phase_data_server(pipe: RxPipeline, blocks: list[np.ndarray], tag: str) -> N
           f"within {worst:.1e} of RxPipeline's block {n_blocks - 1} (trimmed to 2048, 5 places); "
           f"dataBlocks {n_blocks}; the DSD report's {found} DMR syncs equal the frame sync of "
           f"the pipeline's dibits [{tag}]", flush=True)
+
+
+DATV = "sdrangel.channel.demoddatv"
+#: 11a: DVB-S at 250 kS/s (the reduced-bandwidth class amateur DATV stations
+#: transmit) in an 8 MS/s capture; K1 ÷8 hands the channel 1 MS/s, 4 samples
+#: a symbol. Blocks of the solver's ~1 s (2^20 channel samples, ~160 RS
+#: packets)
+DATV_RATE, DATV_LOG2, DATV_SYMBOL_RATE = 8e6, 3, 250_000.0
+DATV_BLOCK = 1 << 23  # the solver's device block for a 2^20 target at ÷8
+DATV_BLOCKS, DATV_DECODE_BLOCKS = 4, 2
+DATV_ESN0_DB = 10.0
+DATV_SETTINGS = {"symbol_rate": DATV_SYMBOL_RATE}
+#: 11b: the session's blocks (2^16 at the channel) that make one 11a block
+DATV_SERVER_BLOCKS = DATV_BLOCK >> (DATV_LOG2 + 16)
+#: 11c: NFM at 48 kHz × 32, the rate class of a small SDR behind SDRdaemon
+DAEMON_RATE, DAEMON_FEC, DAEMON_DROP_EVERY = 1_536_000.0, 16, 32
+#: the Tx baseband at 192 kHz holds NFM at +20 kHz; the Rx set's K1 ÷4
+DAEMON_LOG2_INTERP, DAEMON_LOG2_DECIM = 3, 2
+DAEMON_AUDIO_S = 3.0
+
+#: a UDP relay in its own process: forwards the sender's datagrams to the
+#: port in argv[1], dropping every argv[2]-th, and swallows the receiver's
+#: feedback (the sender does not adapt its FEC here)
+RELAY = r"""
+import socket, sys
+sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 23)
+sock.bind(("127.0.0.1", 0))
+print(sock.getsockname()[1], flush=True)
+target, drop, k = ("127.0.0.1", int(sys.argv[1])), int(sys.argv[2]), 0
+while True:
+    raw = sock.recv(4096)
+    if raw.startswith(b"SDFB"):
+        continue
+    k += 1
+    if k % drop:
+        try:
+            sock.sendto(raw, target)
+        except OSError:
+            pass
+"""
+
+
+def ts_stream(n_packets: int, seed: int) -> np.ndarray:
+    """A transport stream of (n, 188) packets: groups of PAT, PMT and a
+    4,000-byte H.264 PES of programme 7 (24 packets) then 40 random packets."""
+    psi = tsdemux._section_packetize(0, tsdemux.make_pat({7: 0x120}), 0)
+    psi += tsdemux._section_packetize(0x120, tsdemux.make_pmt(7, 0x300, {0x300: 0x1B}), 0)
+    psi += tsdemux.make_pes_packets(0x300, bytes(range(200)) * 20, pts=12345)
+    psi_arr = np.frombuffer(b"".join(psi), np.uint8).reshape(-1, dvbs.TS_PACKET)
+    rng = np.random.default_rng(seed)
+    groups = []
+    while sum(len(g) for g in groups) < n_packets:
+        rand = rng.integers(0, 256, size=(40, dvbs.TS_PACKET), dtype=np.uint8)
+        rand[:, 0] = dvbs.SYNC_BYTE
+        groups += [psi_arr, rand]
+    return np.concatenate(groups)[:n_packets]
+
+
+def dvbs_capture(dev, packets: np.ndarray, fec_rate: str, n_blocks: int, seed: int
+                 ) -> tuple[list[np.ndarray], int]:
+    """The packets as DVB-S QPSK (the port's dvbs encoder) at 250 kS/s in an
+    8 MS/s capture: 32 samples a symbol, shaped on the card with
+    create_rrc_filter (rolloff 0.35), white noise at DATV_ESN0_DB over the
+    whole band, int16 blocks of DATV_BLOCK. Returns (blocks, symbols sent)."""
+    chan_bits = dvbs.encode_transport(packets.reshape(-1))
+    if fec_rate != "1/2":
+        chan_bits = dvbs.puncture(chan_bits, fec_rate)
+    sym = torch.from_numpy(demod_datv.bits_to_qpsk(chan_bits)).to(dev)
+    sps = int(DATV_RATE / DATV_SYMBOL_RATE)
+    total = n_blocks * DATV_BLOCK
+    n_sym = min(len(sym), total // sps)
+    up = torch.zeros(total, dtype=torch.complex64, device=dev)
+    up[:n_sym * sps:sps] = sym[:n_sym] * sps
+    h = torch.from_numpy(fftfilt.create_rrc_filter(1.0 / sps, 0.35, 4096)).to(dev)
+    _, x = fftfilt.run_filt(fftfilt.make_state(4096, dev), up, h)
+    p_sig = float(torch.mean(x[:n_sym * sps].abs() ** 2))
+    # Es/N0 = P·sps/σ² for complex noise of variance σ² a sample
+    sigma2 = p_sig * sps / 10.0 ** (DATV_ESN0_DB / 10.0)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    noise = torch.randn((2, total), generator=g, device=dev) * float(np.sqrt(sigma2 / 2))
+    y = (x + torch.complex(noise[0], noise[1])) * float(0.1 / np.sqrt(p_sig + sigma2))
+    raw = _i16(y)
+    return [raw[b * DATV_BLOCK:(b + 1) * DATV_BLOCK] for b in range(n_blocks)], n_sym
+
+
+def _soft(outs: list[dict]) -> tuple[np.ndarray, np.ndarray]:
+    return _data(outs, 0, "soft_i"), _data(outs, 0, "soft_q")
+
+
+def ts_check(ts: bytes, stats: dict, sent: np.ndarray, what: str) -> int:
+    """RS failed on no packet, and the recovered packets equal the sent ones
+    from a scrambler-group head (a multiple of 8) on. Returns that head."""
+    got = np.frombuffer(ts, np.uint8).reshape(-1, dvbs.TS_PACKET)
+    check(stats["rsFailed"] == 0 and len(got) == stats["packets"] > 0,
+          f"{what}: {stats}, {len(got)} packets")
+    starts = [k for k in range(0, len(sent) - len(got) + 1, 8)
+              if np.array_equal(sent[k:k + len(got)], got)]
+    check(len(starts) == 1, f"{what}: the {len(got)} recovered packets match the sent stream "
+                            f"from group heads {starts}")
+    return starts[0]
+
+
+def phase_datv(dev: torch.device, tag: str) -> dict:
+    """11a: DATV at full width through RxPipeline behind K1, the host FEC
+    and the TS demux over the first blocks' soft symbols, a shorter FEC 3/4
+    capture, card against CPU, the device's busy share."""
+    spec = [ChannelSpec(DATV, 0.0, DATV_SETTINGS, requested_rate(DATV, DATV_SETTINGS))]
+    pipe = RxPipeline(DeviceConfig(DATV_RATE, log2_decim=DATV_LOG2), spec, dev,
+                      block_size=1 << 20)
+    sps = pipe.demod_cfgs[0].sps
+    check(pipe.device_block == DATV_BLOCK and pipe.fused_ingest and sps == 4
+          and pipe.plans[0].signs == (), f"datv: device block {pipe.device_block}, sps {sps}, "
+                                         f"plans {pipe.plans}")
+    t0 = time.perf_counter()
+    block_s = DATV_BLOCK / DATV_RATE
+    n_packets = int(DATV_BLOCKS * block_s * DATV_SYMBOL_RATE / 1632) + 16  # 1632 symbols a packet
+    sent = ts_stream(n_packets, seed=13)
+    blocks, n_sym = dvbs_capture(dev, sent, "1/2", DATV_BLOCKS, seed=14)
+    sent34 = ts_stream(120, seed=15)
+    blocks34, n_sym34 = dvbs_capture(dev, sent34, "3/4", 1, seed=16)
+    print(f"phase 11a datv: {n_packets} TS packets at FEC 1/2 and 120 at FEC 3/4 encoded on the "
+          f"host and shaped on the card ({n_sym} and {n_sym34} symbols), {DATV_BLOCKS} + 1 "
+          f"blocks of {DATV_BLOCK} i16 samples in {time.perf_counter() - t0:.2f} s (set-up) "
+          f"[{tag}]", flush=True)
+    list(pipe.run(lambda b, n: blocks[b], 1))  # warm-up: cuFFT plans, the kernel library
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [o for _, o in pipe.run(lambda b, n: blocks[b], DATV_BLOCKS)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    k1 = flat_decimate.launches
+    check(k1 == DATV_BLOCKS and flat_decimate_tc.launches == 0 and kpll_launches() == 0,
+          f"datv: K1 {k1}, K1-TC {flat_decimate_tc.launches} launches for {DATV_BLOCKS}")
+    soft_i, soft_q = _soft(outs)
+    check(soft_i.shape == ((DATV_BLOCKS * DATV_BLOCK >> DATV_LOG2) // sps,) and np.isfinite(soft_i).all()
+          and np.isfinite(soft_q).all(), f"datv: soft symbols {soft_i.shape}")
+    n_dec = (DATV_DECODE_BLOCKS * DATV_BLOCK >> DATV_LOG2) // sps
+    t0 = time.perf_counter()
+    ts, stats = demod_datv.recover_ts(soft_i[:n_dec], soft_q[:n_dec], max_packets=2048)
+    host_s = time.perf_counter() - t0
+    head = ts_check(ts, stats, sent, "datv 1/2")
+    demux = tsdemux.TsDemux()
+    demux.feed(ts)
+    progs = {p["program"]: p for p in demux.summary()["programs"]}
+    check(7 in progs and progs[7]["streams"][0]["codec"] == "H.264 video",
+          f"datv: programme map {demux.summary()}")
+    outs34 = [o for _, o in pipe.run(lambda b, n: blocks34[b], 1)]
+    soft34 = [s[:n_sym34] for s in _soft(outs34)]
+    t0 = time.perf_counter()
+    ts34, stats34 = demod_datv.recover_ts(*soft34, fec_rate="3/4", max_packets=2048)
+    host34_s = time.perf_counter() - t0
+    head34 = ts_check(ts34, stats34, sent34, "datv 3/4")
+    t0 = time.perf_counter()
+    cpu_pipe = RxPipeline(DeviceConfig(DATV_RATE, log2_decim=DATV_LOG2), spec, "cpu",
+                          block_size=1 << 20)
+    cpu = [o for _, o in cpu_pipe.run(lambda b, n: blocks[b], 2)]
+    cpu_s = time.perf_counter() - t0
+    agree, _, _ = _agree_outs(cpu, outs[:2])
+    check(agree >= 80.0, f"datv: card vs CPU {agree:.1f} dB")
+    signal_s = DATV_BLOCKS * block_s
+    dec_signal_s = DATV_DECODE_BLOCKS * block_s
+    print(f"phase 11a datv: 8 MS/s /8, DVB-S 250 kS/s QPSK FEC 1/2 at Es/N0 {DATV_ESN0_DB} dB; "
+          f"{DATV_BLOCKS} blocks in {elapsed:.4f} s = {elapsed / DATV_BLOCKS * 1e3:.3f} ms/block, "
+          f"real-time factor {signal_s / elapsed:.2f}; K1 launches {k1}; host recover_ts over "
+          f"{DATV_DECODE_BLOCKS} blocks ({2 * n_dec} soft bits): {host_s:.3f} s = "
+          f"{host_s / dec_signal_s:.3f} s per second of signal, {stats}, packets equal to the "
+          f"sent ones from group head {head}, programme 7 {progs[7]['streams'][0]['codec']}; "
+          f"FEC 3/4 ({n_sym34} symbols): {host34_s:.3f} s, {stats34}, from head {head34}; card "
+          f"vs CPU on 2 blocks {agree:.2f} dB (CPU run {cpu_s:.1f} s) [{tag}]", flush=True)
+    print(f"phase 11a datv: device time of 2 blocks by torch.profiler, against the timed run's "
+          f"{elapsed / DATV_BLOCKS * 1e3:.3f} ms/block [{tag}]", flush=True)
+    _device_time(lambda: list(pipe.run(lambda b, n: blocks[b], 2)), 2,
+                 elapsed / DATV_BLOCKS * 2)
+    return {"k1": k1, "blocks": blocks, "stats": stats, "host_s_per_s": host_s / dec_signal_s,
+            "ms_block": elapsed / DATV_BLOCKS * 1e3}
+
+
+def phase_datv_server(blocks: list[np.ndarray], tag: str) -> None:
+    """11b: 11a's first block as a .sdriq through the server process over
+    HTTP: a DATV channel in continuous mode, its "datv" report polled
+    through the run (each decode pass's host seconds, the worker's stall)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "datv.sdriq")
+        writer = sdriq.SdriqWriter(path, sample_rate=int(DATV_RATE))
+        writer.write(blocks[0])
+        writer.close()
+        with server_process(tmp, "datv server") as (base, server_log):
+            check(http(base, "/sdrangel/devicesets", "POST")[0] == 201, "datv server: add set")
+            code, reply = http(base, "/sdrangel/deviceset/0/device/settings", "PATCH", {
+                "kind": "filesource", "file_path": path, "log2_decim": DATV_LOG2,
+                "run_blocks": DATV_SERVER_BLOCKS, "publish_every": 1})
+            check(code == 200, f"datv server: device settings {reply}")
+            code, reply = http(base, "/sdrangel/deviceset/0/channel", "POST", {
+                "channelType": DATV, **DATV_SETTINGS, "datvContinuous": True})
+            check(code == 201, f"datv server: add channel {reply}")
+            passes = {}
+            t0 = time.perf_counter()
+            check(http(base, "/sdrangel/deviceset/0/device/run", "POST")[0] == 200,
+                  "datv server: run")
+            while True:
+                state = http(base, "/sdrangel/deviceset/0")[1]["state"]
+                rep = http(base, "/sdrangel/deviceset/0/channel/0/report")[1]
+                if "datv" in rep:
+                    passes[rep["datv"]["rounds"]] = rep["datv"]["hostSeconds"]
+                if state != "running":
+                    break
+                check(time.perf_counter() - t0 < 300, "datv server: still running after 300 s")
+                time.sleep(0.05)
+            _, entry = http(base, "/sdrangel/deviceset/0")
+            check(entry["state"] == "idle" and not entry["error"],
+                  f"datv server: {entry['state']} {entry['error']!r}")
+            _, device = http(base, "/sdrangel/deviceset/0/device/report")
+            _, rep = http(base, "/sdrangel/deviceset/0/channel/0/report")
+            code, data = http(base, "/sdrangel/deviceset/0/channel/0/data")
+    datv = rep.get("datv") or {}
+    passes[datv.get("rounds")] = datv.get("hostSeconds")
+    check(datv.get("rounds", 0) >= 1 and datv["packets"] > 100 and datv["rsFailed"] == 0,
+          f"datv server: {datv} {server_log[0][-2000:]}")
+    progs = {p["program"]: p for p in datv["ts"]["programs"]}
+    check(7 in progs and progs[7]["streams"][0]["codec"] == "H.264 video",
+          f"datv server: programme map {datv['ts']}")
+    check(code == 200 and sorted(data["data"]) == ["soft_i", "soft_q"] == rep["dataKeys"]
+          and data["dataBlocks"] == DATV_SERVER_BLOCKS
+          and len(data["data"]["soft_i"]) == min(2048, (DATV_BLOCK >> DATV_LOG2) // 4
+                                                  // DATV_SERVER_BLOCKS),
+          f"datv server: data route {code} {sorted(data.get('data', {}))}")
+    stall = sum(v for v in passes.values() if v is not None)
+    print(f"phase 11b datv server: python -m sdrangel_tpu_torch server --device {DEVICE}, "
+          f"11a's first block as a .sdriq over HTTP in {DATV_SERVER_BLOCKS} session blocks: "
+          f"{device['elapsedSeconds'] / DATV_SERVER_BLOCKS * 1e3:.3f} ms/block (device report, "
+          f"decode passes included), real-time factor {device['realtimeFactor']:.2f}; decode "
+          f"passes (round: host s, the worker's stall) "
+          + ", ".join(f"{r}: {s:.3f}" for r, s in sorted(passes.items()) if s is not None)
+          + f" = {stall:.3f} s of {device['elapsedSeconds']:.3f} s; report rounds "
+          f"{datv['rounds']}, packets {datv['packets']}, rsFailed {datv['rsFailed']}, "
+          f"rotation {datv['rotation']}, programme 7 {progs[7]['streams'][0]['codec']}; /data "
+          f"carries soft_i/soft_q [{tag}]", flush=True)
+
+
+def _longest_active_run(audio: np.ndarray) -> np.ndarray:
+    """The longest stretch of audio the network source did not fill with
+    silence (a stream gap)."""
+    active = np.abs(audio) > 1e-4
+    edges = np.flatnonzero(np.diff(np.concatenate([[0], active.view(np.int8), [0]])))
+    start, end = max(zip(edges[0::2], edges[1::2]), key=lambda r: r[1] - r[0])
+    return audio[start:end]
+
+
+def phase_daemon(tag: str) -> int:
+    """11c: the remote radio, a Tx set on the card in a `server` process of
+    its own (NFM +20 kHz, 1.536 MS/s) into a daemonsink (FEC 16); a relay
+    process that drops every 32nd datagram; and here an Rx set on the card
+    whose daemonsource feeds K1 ÷4 and NFM at +20 kHz."""
+    check(fec.native_available(), "daemon: the native GF(256) codec did not build")
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as probe:
+        probe.bind(("127.0.0.1", 0))
+        rx_port = probe.getsockname()[1]
+    relay = subprocess.Popen([sys.executable, "-c", RELAY, str(rx_port),
+                              str(DAEMON_DROP_EVERY)], stdout=subprocess.PIPE, text=True)
+    session = Session(device=DEVICE)
+    try:
+        relay_port = int(relay.stdout.readline())
+        rx = session.add_device_set("rx")
+        rx.update_source({"kind": "daemonsource", "daemon_port": rx_port,
+                          "sample_rate": DAEMON_RATE, "log2_decim": DAEMON_LOG2_DECIM})
+        rx.add_channel(NFM, {"inputFrequencyOffset": 20_000.0, "squelch_db": -60.0,
+                             "squelch_gate_ms": 1.0})
+        with tempfile.TemporaryDirectory() as tmp, server_process(tmp, "daemon Tx") as (
+                base, _):
+            check(http(base, "/sdrangel/devicesets", "POST", {"direction": "tx"})[0] == 201,
+                  "daemon: add the Tx set")
+            code, reply = http(base, "/sdrangel/deviceset/0/device/settings", "PATCH", {
+                "kind": "daemonsink", "sample_rate": DAEMON_RATE,
+                "log2_interp": DAEMON_LOG2_INTERP, "daemon_port": relay_port,
+                "daemon_fec": DAEMON_FEC, "throttle": True})
+            check(code == 200, f"daemon: sink settings {reply}")
+            code, reply = http(base, "/sdrangel/deviceset/0/channel", "POST", {
+                "channelType": NFM_MOD, "inputFrequencyOffset": 20_000.0,
+                "toneFrequency": 1000.0, "fm_deviation": 5000.0})
+            check(code == 201, f"daemon: add the modulator {reply}")
+            check(http(base, "/sdrangel/deviceset/0/device/run", "POST")[0] == 200,
+                  "daemon: Tx run")
+            t0 = time.perf_counter()
+            while (tx := http(base, "/sdrangel/deviceset/0/device/report")[1])[
+                    "blocksProcessed"] < 3:
+                check(tx["state"] == "running" and time.perf_counter() - t0 < 60,
+                      f"daemon: Tx {tx}")
+                time.sleep(0.05)
+            reset_counts()
+            rx.start()
+            t0 = time.perf_counter()
+            audio, failed_at_1s = [], None
+            while sum(len(a) for a in audio) < DAEMON_AUDIO_S * 48_000:
+                check(not rx.error and time.perf_counter() - t0 < 60, f"daemon: Rx {rx.error!r}")
+                time.sleep(0.05)
+                if failed_at_1s is None and rx.elapsed_s >= 1.0:
+                    failed_at_1s = rx.daemon_stats.frames_failed
+                audio.append(rx.drain_audio(0))
+            rx.stop()
+            rx_s = rx.elapsed_s
+            tx = http(base, "/sdrangel/deviceset/0/device/report")[1]
+            check(http(base, "/sdrangel/deviceset/0/device/run", "DELETE")[0] == 200,
+                  "daemon: Tx stop")
+        check(tx["state"] == "running" and not rx.error and not rx.running,
+              f"daemon: Tx {tx} Rx {rx.error!r}")
+    finally:
+        session.shutdown()
+        relay.terminate()
+        relay.wait(timeout=10)
+    k1 = flat_decimate.launches
+    stats = rx.daemon_stats
+    check(k1 == rx.blocks_processed > 0 and flat_decimate_tc.launches == 0,
+          f"daemon: K1 {k1} launches for {rx.blocks_processed} Rx blocks")
+    check(stats.blocks_recovered > 0 and failed_at_1s is not None
+          and stats.frames_failed == failed_at_1s,
+          f"daemon: {stats}, {failed_at_1s} frames failed in the first second")
+    run = _longest_active_run(np.concatenate(audio))
+    snr = tone_snr(run[len(run) // 4:].astype(np.float64), 1000.0, 48_000.0)
+    check(len(run) >= 2 * 48_000 and snr > 25.0,
+          f"daemon: longest active run {len(run)} samples, tone SNR {snr:.1f} dB")
+    print(f"phase 11c daemon: Tx NFM +20 kHz at {DAEMON_RATE / 1e6} MS/s "
+          f"x{1 << DAEMON_LOG2_INTERP} into a daemonsink (FEC {DAEMON_FEC}) in a server "
+          f"process, a relay process dropping every {DAEMON_DROP_EVERY}th datagram, an Rx "
+          f"daemonsource /{1 << DAEMON_LOG2_DECIM} NFM +20 kHz here, both on {DEVICE}: "
+          f"{stats.frames_ok / rx_s:.1f} superframes/s, {stats.blocks_received / rx_s:.0f} "
+          f"datagrams/s over {rx_s:.2f} s; Rx real-time factor {rx.realtime_factor:.3f}, Tx "
+          f"{tx['realtimeFactor']:.3f} (device report); {stats}, {failed_at_1s} failed in the "
+          f"first second; K1 launches {k1}; tone SNR {snr:.2f} dB over the longest active run "
+          f"of {len(run) / 48_000:.2f} s [{tag}]", flush=True)
+    return k1
+
+
+def plain_superframe(frame_index: int, payload: bytes, n_fec: int) -> list[bytes]:
+    """make_superframe written out plainly: the MetaDataFEC block, 127
+    payload blocks zero-padded, the NumPy codec's parity, each behind its
+    (frame, block, n_fec) header."""
+    meta = struct.pack("<QIIHHII", 0, 0, 16, 128, n_fec, len(payload), zlib.crc32(payload))
+    body = meta.ljust(512, b"\0") + payload.ljust(127 * 512, b"\0")
+    data = np.frombuffer(body, np.uint8).reshape(128, 512)
+    parity = fec.fec_encode_py(data, n_fec)
+    blocks = [data[i].tobytes() for i in range(128)] + [p.tobytes() for p in parity]
+    return [struct.pack("<IHH", frame_index, i, n_fec) + b for i, b in enumerate(blocks)]
+
+
+def phase_codec(tag: str) -> dict:
+    """11d: the native GF(256) codec against the NumPy one on one
+    superframe (128 × 512 bytes, 16 parity blocks, 16 erasures), its times,
+    and make_superframe's datagrams against a plain re-encode."""
+    rng = np.random.default_rng(17)
+    data = rng.integers(0, 256, size=(128, 512), dtype=np.uint8)
+    parity = fec.fec_encode(data, DAEMON_FEC)
+    check(np.array_equal(parity, fec.fec_encode_py(data, DAEMON_FEC)),
+          "codec: native and NumPy parity differ")
+    lost = set(rng.choice(128, size=DAEMON_FEC, replace=False).tolist())
+    received = {i: data[i] for i in range(128) if i not in lost}
+    received.update({128 + r: parity[r] for r in range(DAEMON_FEC)})
+    native = fec.fec_decode(received, 128, 512)
+    check(np.array_equal(native, data) and np.array_equal(fec.fec_decode_py(received, 128, 512),
+                                                          data),
+          "codec: native or NumPy recovery of 16 erasures failed")
+    times = {}
+    for name, fn in (("encode", lambda: fec.fec_encode(data, DAEMON_FEC)),
+                     ("decode", lambda: fec.fec_decode(received, 128, 512))):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        times[name] = (time.perf_counter() - t0) / 200 * 1e3
+    payload = rng.integers(-3000, 3000, size=(16_000, 2), dtype=np.int16).tobytes()
+    grams = daemon.make_superframe(5, payload, DAEMON_FEC, sample_bits=16)
+    check(grams == plain_superframe(5, payload, DAEMON_FEC),
+          "codec: make_superframe differs from the plain re-encode")
+    print(f"phase 11d codec: native ({os.path.relpath(fec.library_path(), REPO)}) and NumPy "
+          f"GF(256) agree byte for byte on 128 x 512 B with {DAEMON_FEC} parity blocks and "
+          f"{DAEMON_FEC} erasures; native encode {times['encode']:.4f} ms, decode "
+          f"{times['decode']:.4f} ms per superframe (host); {len(grams)} datagrams equal a "
+          f"plain re-encode [{tag}]", flush=True)
+    return times
 
 
 def main() -> int:
@@ -2220,6 +2647,10 @@ def main() -> int:
     data = phase_data(dev, tag)
     atv_launches = phase_atv(dev, tag)
     phase_data_server(data["pipe"], data["blocks"], tag)
+    datv = phase_datv(dev, tag)
+    phase_datv_server(datv["blocks"], tag)
+    daemon_launches = phase_daemon(tag)
+    phase_codec(tag)
 
     print(tag, flush=True)
     print(json.dumps({"kernels": [{
@@ -2238,7 +2669,8 @@ def main() -> int:
         "forms": k1["forms"],
         "server_launches": server_launches,
         "tx_loopback_launches": tx_loopback_launches,
-        "data_launches": {"set_a": data["k1"], "atv_set_b": atv_launches},
+        "data_launches": {"set_a": data["k1"], "atv_set_b": atv_launches,
+                          "datv": datv["k1"], "daemon_rx": daemon_launches},
     }, {
         "name": "flat_decimate_tc",
         "route": "cuda",

@@ -7,12 +7,18 @@ unless regenerated. Here the document is built from the code:
   both directions by tests/test_torch_api.py, so a route served but not
   documented, or documented but not served, fails a test;
 - each channel kind's settings and report schemas come from the registry,
-  the Rx demods' and the Tx modulators'.
+  the Rx demods' and the Tx modulators';
+- the device settings of an Rx set (its source) and of a Tx set (its sink)
+  come from the session's dataclasses, the daemon source's and sink's fields
+  among them.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 from ..channels.registry import CONFIG_CLASSES, report_schema, settings_schema
+from ..runtime.session import SINK_KINDS, SOURCE_KINDS, SinkSettings, SourceSettings
 
 #: the served path layout (parameters: {i}/{j} device/channel index,
 #: {group}/{name} preset key, {name} command name)
@@ -44,7 +50,7 @@ PATHS = {
     "/sdrangel/deviceset/{i}/channel/{j}/audio": {
         "get": {"summary": "drain demod audio as WAV (an Rx set's; 400 on a Tx set)"}},
     "/sdrangel/deviceset/{i}/channel/{j}/data": {
-        "get": {"summary": "latest data-channel block (chanalyzer/LoRa/DSD/ATV/UDPSrc)"}},
+        "get": {"summary": "latest data-channel block (chanalyzer/LoRa/DSD/ATV/DATV/UDPSrc)"}},
     "/sdrangel/presets": {"get": {}},
     "/sdrangel/preset": {"post": {"summary": "save"}, "delete": {}},
     "/sdrangel/preset/{group}/{name}": {"delete": {}},
@@ -139,7 +145,12 @@ STATIC_SCHEMAS = {
             "realtimeFactor": {"type": "number"},
             # wall seconds from the run's first queued block to its latest
             # publish (host clock)
-            "elapsedSeconds": {"type": "number"}}},
+            "elapsedSeconds": {"type": "number"},
+            # an Rx set that has run a daemon source: its receiver's counts
+            "daemonFrames": {
+                "type": "object",
+                "properties": {k: {"type": "integer"} for k in (
+                    "framesOk", "framesFailed", "blocksReceived", "blocksRecovered")}}}},
     "ChannelReport": {
         "type": "object",
         "properties": {
@@ -181,6 +192,7 @@ RESPONSES = {
     "/sdrangel/devicesets": ("get", "DeviceSetList"),
     "/sdrangel/deviceset/{i}": ("get", "DeviceSet"),
     "/sdrangel/deviceset/{i}/device/report": ("get", "DeviceReport"),
+    "/sdrangel/deviceset/{i}/device/settings": ("get", "DeviceSettings"),
     "/sdrangel/deviceset/{i}/channel/{j}/report": ("get", "ChannelReport"),
     "/sdrangel/deviceset/{i}/spectrum": ("get", "Spectrum"),
     "/sdrangel/audio": ("get", "AudioDevices"),
@@ -193,21 +205,39 @@ def _kind_name(uri: str) -> str:
     return uri.rsplit(".", 1)[-1]
 
 
+_JSON_TYPES = {"float": "number", "int": "integer", "bool": "boolean", "str": "string"}
+
+
+def _type_name(t) -> str:
+    return t if isinstance(t, str) else getattr(t, "__name__", str(t))
+
+
+def _device_settings_schema(cls: type, kinds: dict) -> dict:
+    """An Rx source's or a Tx sink's settings, from its dataclass."""
+    props = {}
+    for f in dataclasses.fields(cls):
+        props[f.name] = {"type": _JSON_TYPES.get(_type_name(f.type), "string"),
+                         "default": f.default}
+    props["kind"]["enum"] = sorted(kinds)
+    return {"type": "object", "properties": props}
+
+
 def build_document(version: str) -> dict:
     import copy
 
     paths = copy.deepcopy(PATHS)
     schemas = copy.deepcopy(STATIC_SCHEMAS)
 
+    schemas["SourceSettings"] = _device_settings_schema(SourceSettings, SOURCE_KINDS)
+    schemas["SinkSettings"] = _device_settings_schema(SinkSettings, SINK_KINDS)
+    schemas["DeviceSettings"] = {"oneOf": [_ref("SourceSettings"), _ref("SinkSettings")]}
+
     # each channel kind's settings and report schemas, from the registry
     for uri in sorted(CONFIG_CLASSES):
         name = _kind_name(uri)
         props = {}
         for field, info in settings_schema(uri).items():
-            json_type = {"float": "number", "int": "integer",
-                         "bool": "boolean", "str": "string"}.get(
-                             info["type"], "string")
-            props[field] = {"type": json_type}
+            props[field] = {"type": _JSON_TYPES.get(info["type"], "string")}
             if info["default"] is not None:
                 props[field]["default"] = info["default"]
         schemas[f"ChannelSettings_{name}"] = {

@@ -28,9 +28,9 @@ modulators: POST /sdrangel/devicesets {"direction": "tx"}, or
 its sink's.
 
 Errors: a malformed request or setting is a 400, an unknown index or key a
-404, and a part not ported yet (a sharded or daemon source, the daemon sink,
-UDP/RTP egress and AF ingest, DATV, the reference-TLV preset format) a 501
-whose message names its ROADMAP item. An unknown channel kind is a 404, the
+404, and a part not ported yet (the sharded source on several GPUs, UDP/RTP
+egress and AF ingest, the reference-TLV preset format: ROADMAP.md queue 1,
+items 9, 12 and 13) a 501 whose message names its ROADMAP item. An unknown channel kind is a 404, the
 Tx kind sdrangel.channeltx.modatv included, as the JAX server answers.
 """
 
@@ -80,6 +80,18 @@ _CHANNEL_SETTINGS = re.compile(r"^/sdrangel/deviceset/(\d+)/channel/(\d+)/settin
 _CHANNEL_REPORT = re.compile(r"^/sdrangel/deviceset/(\d+)/channel/(\d+)/report$")
 _CHANNEL_AUDIO = re.compile(r"^/sdrangel/deviceset/(\d+)/channel/(\d+)/audio$")
 _CHANNEL_DATA = re.compile(r"^/sdrangel/deviceset/(\d+)/channel/(\d+)/data$")
+
+
+def _daemon_report(ds) -> dict:
+    """An Rx set's daemon-source link statistics (the reference's
+    SDRdaemonSource status: sdrdaemonsourcebuffer.h:100-115), once it has
+    run one."""
+    stats = getattr(ds, "daemon_stats", None)
+    if stats is None:
+        return {}
+    return {"daemonFrames": {"framesOk": stats.frames_ok, "framesFailed": stats.frames_failed,
+                             "blocksReceived": stats.blocks_received,
+                             "blocksRecovered": stats.blocks_recovered}}
 
 
 class _BadRequest(Exception):
@@ -184,6 +196,7 @@ class ApiHandler(BaseHTTPRequestHandler):
                         "blocksProcessed": ds.blocks_processed,
                         "realtimeFactor": ds.realtime_factor,
                         "elapsedSeconds": ds.elapsed_s,
+                        **_daemon_report(ds),
                     },
                 )
             if m := _SCOPE.match(p):

@@ -1,10 +1,10 @@
 """Channel-type registry — the plugin-manager role (pluginmanager.{h,cpp}):
 channel kinds keyed by the reference's URIs. The port registers the NFM,
 AM, SSB, WFM and broadcast FM receivers and the data channels (channel
-analyzer, LoRa, DSD, ATV and UDPSrc) in REGISTRY, and the NFM, AM, SSB and
-WFM modulators of the Tx device sets in TX_KINDS (runtime/tx.py holds their
-modulate functions). DATV waits (ROADMAP.md, queue 1): naming it raises
-NotImplementedError with its queue item.
+analyzer, LoRa, DSD, ATV, DATV and UDPSrc) in REGISTRY, and the NFM, AM, SSB
+and WFM modulators of the Tx device sets in TX_KINDS (runtime/tx.py holds
+their modulate functions). The JAX session's UDP/RTP keys wait (ROADMAP.md,
+queue 1): naming one raises NotImplementedError with its queue item.
 
 The session and the REST server read the settable fields from here: each
 kind's schema is derived from its config dataclass, so it cannot drift from
@@ -20,8 +20,8 @@ from fractions import Fraction
 
 import torch
 
-from . import (chanalyzer, demod_am, demod_atv, demod_bfm, demod_dsd, demod_lora, demod_nfm,
-               demod_ssb, demod_wfm, modulators, udpsrc)
+from . import (chanalyzer, demod_am, demod_atv, demod_bfm, demod_datv, demod_dsd, demod_lora,
+               demod_nfm, demod_ssb, demod_wfm, modulators, udpsrc)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +52,8 @@ class ChannelKind:
     adapter: Callable[[Any], dict] | None = None
     # data kinds: the adapter's output names (the report schema's dataKeys)
     data_keys: tuple = ()
-    # report sections the session adds on the host ("dsd": the frame sync)
+    # report sections the session adds on the host ("dsd": the frame sync,
+    # "datv": the DVB-S FEC and TS demux)
     host_report_keys: tuple = ()
 
 
@@ -77,23 +78,20 @@ def register_config(uri: str, config_cls: type) -> None:
 #: config fields the pipeline binds (not settable over the API)
 _PIPELINE_FIELDS = {"channel_rate", "input_offset", "block_in", "block_af"}
 #: per-channel keys the session handles outside the demod and mod configs:
-#: the offset goes to the channel plan, audioFile to the WAV egress, and
-#: the Tx AF source keys (toneFrequency, afFile, cwText, cwWpm) to the Tx
-#: worker's AF source
+#: the offset goes to the channel plan, audioFile to the WAV egress,
+#: datvContinuous to the DATV host decode, and the Tx AF source keys
+#: (toneFrequency, afFile, cwText, cwWpm) to the Tx worker's AF source
 SESSION_KEYS = {"inputFrequencyOffset", "audioFile", "toneFrequency", "afFile", "cwText",
-                "cwWpm"}
+                "cwWpm", "datvContinuous"}
 
-ITEM_DATV = ("ROADMAP.md queue 1, item 6e (DATV: demod_datv.py with dvbs.py, tsdemux.py, "
-             "fftfilt.create_rrc_filter, datvContinuous and io/fec.py)")
 ITEM_UDP_RTP = ("ROADMAP.md queue 1, item 12 (UDP/RTP egress and ingest: io/udp.py, "
                 "io/rtp.py)")
 #: the JAX package's channel kinds that the port does not carry yet
-UNPORTED_KINDS = {"sdrangel.channel.demoddatv": ITEM_DATV}
+UNPORTED_KINDS: dict[str, str] = {}
 #: the JAX session's per-channel keys that the port does not carry yet
 UNPORTED_KEYS = {
     "audioUdp": ITEM_UDP_RTP, "audioRtp": ITEM_UDP_RTP, "udpAddress": ITEM_UDP_RTP,
-    "udpPort": ITEM_UDP_RTP, "udpFormat": ITEM_UDP_RTP, "datvContinuous": ITEM_DATV,
-    "afUdp": ITEM_UDP_RTP,
+    "udpPort": ITEM_UDP_RTP, "udpFormat": ITEM_UDP_RTP, "afUdp": ITEM_UDP_RTP,
 }
 
 
@@ -114,7 +112,10 @@ def requested_rate(uri: str, settings: dict) -> float:
     demods ask through DSPConfigureChannelizer): the audio kinds the 48 kHz
     class; broadcast FM its whole MPX (pilot, stereo and RDS up to 57 kHz
     plus the deviation: rfBandwidth, 180 kHz by default in bfmdemod.cpp);
-    the data channels theirs from their own signal parameters."""
+    the data channels theirs from their own signal parameters (DATV four
+    samples a symbol)."""
+    if uri == "sdrangel.channel.demoddatv":
+        return 4.0 * float(settings.get("symbol_rate", 250_000.0))
     if uri == "sdrangel.channel.demodatv":
         return float(settings.get("rf_bandwidth", 6_000_000.0))
     if uri == "sdrangel.channel.lorademod":
@@ -216,7 +217,7 @@ register(ChannelKind(
 
 
 # -- the data channels (reference plugins chanalyzer, demodlora, demoddsd,
-# demodatv, udpsrc): their outputs leave the device as named arrays ----------
+# demodatv, demoddatv, udpsrc): their outputs leave the device as named arrays ----------
 
 
 def _fields(outs) -> dict:
@@ -261,6 +262,13 @@ def _atv_block_factor(channel_rate: float, settings: dict) -> int:
     ).samples_per_line
 
 
+def _datv_block_factor(channel_rate: float, settings: dict) -> int:
+    """Whole symbols a block."""
+    return demod_datv.DATVConfig(
+        channel_rate=channel_rate, symbol_rate=float(settings.get("symbol_rate", 250_000.0)),
+    ).sps
+
+
 register(ChannelKind(
     "sdrangel.channel.chanalyzer", chanalyzer.ChanAnalyzerConfig, chanalyzer.make_state,
     chanalyzer.process, needs_fft_hop=True, output="data", needs_audio_ratio=False,
@@ -282,6 +290,12 @@ register(ChannelKind(
     block_factor=_atv_block_factor, needs_fft_hop=True, output="data",
     needs_audio_ratio=False, adapter=_fields,
     data_keys=("lines", "sync_phase", "sync_quality"),
+))
+register(ChannelKind(
+    "sdrangel.channel.demoddatv", demod_datv.DATVConfig, demod_datv.make_state,
+    demod_datv.process, block_factor=_datv_block_factor, needs_fft_hop=True, output="data",
+    needs_audio_ratio=False, adapter=_fields, data_keys=("soft_i", "soft_q"),
+    host_report_keys=("datv",),
 ))
 register(ChannelKind(
     "sdrangel.channel.udpsrc", udpsrc.UdpSrcConfig, udpsrc.make_state, udpsrc.process,

@@ -5,8 +5,8 @@ Reference: sdrbase/dsp/fftfilt.{h,cpp} — accumulates flen/2 samples, FFTs
 first half plus the saved overlap and saves the second half (runFilt
 fftfilt.cpp:261-282; runSSB :285-326 zeroes the rejected sideband; runDSB
 :328; runAsym :361). The designers (create_filter :108, the DSB lowpass
-:149, the asymmetric pair :193) are host-side numpy, as in the JAX
-package.
+:149, the asymmetric pair :193, the root-raised cosine) are host-side
+numpy, as in the JAX package.
 
 A block of T samples is (T/hop, hop) frames; the frames go through one
 batched `torch.fft` each way, and the overlap-add between consecutive
@@ -79,6 +79,19 @@ def create_asym_filter(fopp: float, fin: float, flen: int = 1024
     """In-band and opposite-band pair for vestigial sideband
     (fftfilt::create_asym_filter)."""
     return create_dsb_filter(fin, flen), create_dsb_filter(fopp, flen)
+
+
+def create_rrc_filter(fb: float, alpha: float, flen: int = 1024) -> np.ndarray:
+    """Root-raised-cosine built directly in the frequency domain
+    (fftfilt::create_rrc_filter / frrc): fb the symbol rate and alpha the
+    rolloff, as fractions of the sample rate."""
+    f = np.fft.fftfreq(flen)  # i/flen, then (i - flen)/flen past flen/2
+    a = np.abs(f)
+    lo, hi = fb * (1.0 - alpha) / 2.0, fb * (1.0 + alpha) / 2.0
+    with np.errstate(invalid="ignore"):
+        edge = np.sqrt(0.5 * (1.0 + np.cos(np.pi / (fb * alpha) * (a - lo))))
+    h = np.where(a <= lo, 1.0, np.where(a < hi, edge, 0.0))
+    return _normalize_peak(h, half_only=False).astype(np.complex64)
 
 
 # ---------------------------------------------------------------------------

@@ -30,15 +30,25 @@ session on purpose:
   the channels it was computed for, and only the part of a channel removed
   since is dropped.
 
-A data channel (chanalyzer, LoRa, DSD, ATV, UDPSrc) publishes its newest
-block's arrays (`latest_data`, the data route of api/server.py); every block
-of a burst is published in order, so the DSD frame sync on the host
-(channels/dsdsync.py) sees each block's dibits.
+A data channel (chanalyzer, LoRa, DSD, ATV, DATV, UDPSrc) publishes its
+newest block's arrays (`latest_data`, the data route of api/server.py);
+every block of a burst is published in order, so the host stages see each
+block: the DSD frame sync (channels/dsdsync.py) and the DATV decode, which
+buffers the soft symbols and runs the DVB-S FEC and the TS demux over them
+(channels/demod_datv.recover_ts, channels/tsdemux.py).
+
+The daemon source (an Rx set's `daemonsource`) takes a remote radio's I/Q
+as FEC superframes over UDP (io/daemon.py) into the pipeline; the daemon
+sink (a Tx set's `daemonsink`) sends a Tx set's device-rate stream out the
+same way. Two things differ from the JAX session: a thread of the daemon
+source receives and decodes the superframes, so the socket is drained while
+the worker waits on the card (the JAX worker reads the socket between
+blocks), and the DATV decode runs outside the set's lock.
 
 The Rx and Tx sessions on the one-pipeline worker are what the port
-carries. The sharded worker, the daemon source and sink, UDP/RTP egress and
-AF ingest, DATV and the reference-TLV preset format raise
-NotImplementedError naming their ROADMAP item.
+carries. The sharded worker, UDP/RTP egress and AF ingest and the
+reference-TLV preset format raise NotImplementedError naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -48,6 +58,8 @@ import json
 import logging
 import os
 import platform
+import queue
+import socket
 import subprocess
 import threading
 import time
@@ -57,19 +69,17 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from ..channels import dsdsync, registry
+from ..channels import demod_datv, dsdsync, registry, tsdemux
 from ..channels.registry import REGISTRY
 from ..dsp import spectrum as dsp_spectrum
 from ..dsp.types import INPUT_FORMATS
-from ..io import sdriq, testsource
+from ..io import daemon, sdriq, testsource
 from .engine import ChannelSpec, DeviceConfig, RxPipeline, fetch, resolve_device, unpack_outs
 from .fifo import BlockFifo
 from .tx import BLOCK_AF, TxChannelSpec, TxDeviceConfig, TxPipeline
 
 ITEM_SHARDED = ("ROADMAP.md queue 1, item 9 (parallel/ on several GPUs: the sharded "
                 "session worker with K1-TC)")
-ITEM_DAEMON = ("ROADMAP.md queue 1, item 11 (daemonsource and daemonsink: io/daemon.py, "
-               "io/fec.py)")
 ITEM_REFPRESET = "ROADMAP.md queue 1, item 13 (reference presets: runtime/refpreset.py)"
 
 #: the JAX session's device settings of parts not ported yet: name ->
@@ -78,23 +88,19 @@ _UNPORTED_SOURCE_FIELDS = {
     "sharded": (False, ITEM_SHARDED), "mesh_time": (0, ITEM_SHARDED),
     "mesh_channel": (1, ITEM_SHARDED), "sharded_block": (0, ITEM_SHARDED),
     "sharded_pfb_m": (0, ITEM_SHARDED), "sharded_pfb_a2a": (False, ITEM_SHARDED),
-    "daemon_address": ("127.0.0.1", ITEM_DAEMON), "daemon_port": (9090, ITEM_DAEMON),
-}
-
-#: the JAX Tx session's sink settings of parts not ported yet (the
-#: daemonsink), as above
-_UNPORTED_SINK_FIELDS = {
-    "daemon_address": ("127.0.0.1", ITEM_DAEMON), "daemon_port": (9094, ITEM_DAEMON),
-    "daemon_fec": (4, ITEM_DAEMON), "daemon_auto_fec": (False, ITEM_DAEMON),
 }
 
 #: available source kinds (the DeviceEnumerator role: software sources only)
 SOURCE_KINDS = {
     "testsource": "synthetic carrier generator (AM/FM/none + impairments)",
     "filesource": ".sdriq or raw cu8/cs8/cs16 capture replay (loops at EOF)",
+    "daemonsource": "UDP superframe + FEC network ingest (io/daemon.py)",
 }
 #: available sink kinds
-SINK_KINDS = {"filesink": ".sdriq recording of the device-rate stream"}
+SINK_KINDS = {
+    "filesink": ".sdriq recording of the device-rate stream",
+    "daemonsink": "UDP superframe + FEC network egress (io/daemon.py)",
+}
 
 
 @dataclasses.dataclass(eq=False)
@@ -115,6 +121,7 @@ class ChannelState:
     latest_data: dict | None = dataclasses.field(default=None, repr=False)
     host_report: dict | None = None
     dsd_sync: "DsdHostSync | None" = dataclasses.field(default=None, repr=False)
+    datv: "DatvHostDecode | None" = dataclasses.field(default=None, repr=False)
 
 
 class DsdHostSync:
@@ -146,11 +153,154 @@ class DsdHostSync:
         return report
 
 
+#: soft bits to buffer before the DATV host decode's first pass
+_DATV_DECODE_BITS = 120_000
+
+
+class DatvHostDecode:
+    """The DATV channel's host decode (the leansdr graph and ffmpeg-demux
+    role of the reference's DATV plugin, datvdemod.cpp), as the JAX
+    session's `_datv_host_decode` (session.py:1090-1145): every block's soft
+    symbols are buffered in order; once enough are, the DVB-S FEC chain
+    (demod_datv.recover_ts) and the TS demux run over the buffer and the
+    programme map goes into the channel report.
+
+    One-shot by default: one pass when the buffer first fills. With
+    `datvContinuous` the pass runs again over the grown buffer whenever
+    another _DATV_DECODE_BITS have arrived, and the buffer starts afresh
+    once it holds 8× that (each window is decoded self-contained: the
+    rotation, the bit alignment and the scrambler groups are found anew)."""
+
+    def __init__(self):
+        self.soft_i: list[np.ndarray] = []
+        self.soft_q: list[np.ndarray] = []
+        self.rounds = 0
+        self.done = False
+
+    def take(self, soft_i: np.ndarray, soft_q: np.ndarray, continuous: bool
+             ) -> tuple[np.ndarray, np.ndarray, int] | None:
+        """One block's soft symbols in; the buffer to decode now and its
+        round number, or None while it is not time for a pass."""
+        if self.done and not continuous:
+            return None
+        self.soft_i.append(soft_i.reshape(-1))
+        self.soft_q.append(soft_q.reshape(-1))
+        total_bits = 2 * sum(a.shape[-1] for a in self.soft_i)
+        cap = 8 * _DATV_DECODE_BITS  # bounds each window's decode cost
+        need = _DATV_DECODE_BITS * (1 + self.rounds if continuous else 1)
+        if total_bits < cap and total_bits < need:
+            return None
+        self.done = True
+        self.rounds += 1
+        out = np.concatenate(self.soft_i), np.concatenate(self.soft_q), self.rounds
+        if not continuous:
+            self.soft_i, self.soft_q = [], []  # one-shot: keep only the report
+        elif total_bits >= cap:
+            self.soft_i, self.soft_q = [], []
+            self.rounds = 0
+        return out
+
+    @staticmethod
+    def decode(soft_i: np.ndarray, soft_q: np.ndarray, rounds: int, fec_rate: str) -> dict:
+        """The channel's "datv" report of one pass: recover_ts's stats, the
+        round, the demux summary and the pass's host seconds."""
+        t0 = time.perf_counter()
+        ts, stats = demod_datv.recover_ts(soft_i, soft_q, fec_rate=fec_rate, max_packets=2048)
+        demux = tsdemux.TsDemux()
+        demux.feed(ts)
+        return {**stats, "rounds": rounds, "ts": demux.summary(),
+                "hostSeconds": time.perf_counter() - t0}
+
+
+class DaemonSource:
+    """The daemonsource's ingest (plugins/samplesource/sdrdaemonsource role):
+    a thread receives the UDP superframes, recovers lost blocks and queues
+    each frame's int16 I/Q (io/daemon.DaemonReceiver), so the socket is
+    drained while the worker waits on the card. `read` takes whole blocks
+    from the queue; after `gap_s` with no frame it returns silence, as the
+    reference's daemon source runs on with no signal."""
+
+    def __init__(self, address: str, port: int, gap_s: float = 5.0):
+        self.key = (address, port)
+        self.gap_s = gap_s
+        # a short socket timeout lets close() end the thread promptly
+        self.rx = daemon.DaemonReceiver(address, port, timeout=0.25)
+        # room for a burst: one Tx block is several superframes of 144
+        # datagrams (the kernel caps the size at its rmem_max)
+        self.rx._sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 23)
+        self.frames: queue.Queue = queue.Queue(maxsize=1024)
+        self._closed = threading.Event()
+        self._buf = np.zeros((0, 2), np.int16)
+        self._thread = threading.Thread(target=self._receive, daemon=True)
+        self._thread.start()
+
+    @property
+    def stats(self) -> daemon.FrameStats:
+        return self.rx.assembler.stats
+
+    def _receive(self) -> None:
+        while not self._closed.is_set():
+            try:
+                iq, _meta = self.rx.recv_frame()
+            except TimeoutError:
+                continue
+            except OSError:
+                return  # the socket closed
+            self.frames.put(iq)
+
+    def read(self, count: int) -> np.ndarray:
+        """The next `count` samples of the stream as (count, 2) int16."""
+        buf = self._buf
+        while buf.shape[0] < count:
+            try:
+                iq = self.frames.get(timeout=self.gap_s)
+            except queue.Empty:
+                iq = np.zeros((count - buf.shape[0], 2), np.int16)
+            buf = np.concatenate([buf, iq], axis=0)
+        self._buf = buf[count:]
+        return buf[:count]
+
+    def close(self) -> None:
+        self._closed.set()
+        self._thread.join(timeout=5.0)
+        self.rx.close()
+
+
+class DaemonSink:
+    """The daemonsink's egress (plugins/samplesink/sdrdaemonsink role): the
+    device-rate stream in whole superframes of payload_room // 4 samples
+    (io/daemon.DaemonSender), the rest carried to the next block."""
+
+    def __init__(self, sink: "SinkSettings"):
+        self.sender = daemon.DaemonSender(
+            sink.daemon_address, int(sink.daemon_port), n_fec=int(sink.daemon_fec),
+            center_frequency=int(sink.center_frequency), sample_rate=int(sink.sample_rate),
+            auto_fec=bool(sink.daemon_auto_fec))
+        self.room = self.sender.payload_room // 4
+        self.carry = np.zeros((0, 2), np.int16)
+
+    def write(self, blk: np.ndarray) -> None:
+        """(N, 2) int16 I/Q, or complex samples at full scale 1.0 (rounded
+        and clipped to int16, as the JAX session does)."""
+        if np.iscomplexobj(blk):
+            blk = np.stack([np.clip(np.round(blk.real * 32768.0), -32768, 32767),
+                            np.clip(np.round(blk.imag * 32768.0), -32768, 32767)],
+                           axis=-1).astype(np.int16)
+        buf = np.concatenate([self.carry, blk], axis=0)
+        n_full = buf.shape[0] // self.room
+        for k in range(n_full):
+            self.sender.send_iq(buf[k * self.room:(k + 1) * self.room])
+        self.carry = buf[n_full * self.room:]
+
+    def close(self) -> None:
+        self.sender.close()
+
+
 @dataclasses.dataclass
 class SourceSettings:
     """File or synthetic front end (filesource/testsource settings)."""
 
-    kind: str = "testsource"  # testsource | filesource
+    kind: str = "testsource"  # testsource | filesource | daemonsource
     file_path: str = ""
     # filesource container: "sdriq" (16/24-bit) or a raw headerless capture
     # ("cu8" rtl_sdr, "cs8" hackrf, "cs16"); "auto" picks sdriq for .sdriq,
@@ -168,6 +318,9 @@ class SourceSettings:
     dc_correction: bool = False
     iq_correction: bool = False
     throttle: bool = False  # pace blocks in real time
+    # daemonsource: the UDP address and port its superframes arrive on
+    daemon_address: str = "127.0.0.1"
+    daemon_port: int = 9090
     # testsource
     modulation: str = "fm"
     carrier_freq: float = 0.0
@@ -218,10 +371,8 @@ def coerce_settings(target, settings: dict) -> dict:
 
 def check_source(settings: dict) -> dict:
     """The device settings without the JAX session's fields of parts not
-    ported yet, which must hold their inert defaults: another value, or the
-    daemon source, raises NotImplementedError naming the ROADMAP item."""
-    if settings.get("kind") == "daemonsource":
-        raise NotImplementedError(f"the daemon source is not ported yet: {ITEM_DAEMON}")
+    ported yet, which must hold their inert defaults: another value raises
+    NotImplementedError naming the ROADMAP item."""
     if settings.get("kind", "testsource") not in SOURCE_KINDS:
         raise ValueError(f"unknown source kind {settings['kind']!r}; "
                          f"available: {sorted(SOURCE_KINDS)}")
@@ -233,19 +384,11 @@ def check_source(settings: dict) -> dict:
 
 
 def check_sink(settings: dict) -> dict:
-    """The sink settings without the daemonsink's fields, which must hold
-    their inert defaults; the daemonsink raises NotImplementedError naming
-    its ROADMAP item."""
-    if settings.get("kind") == "daemonsink":
-        raise NotImplementedError(f"the daemon sink is not ported yet: {ITEM_DAEMON}")
+    """The sink settings, their kind checked (ValueError on an unknown one)."""
     if settings.get("kind", "filesink") not in SINK_KINDS:
         raise ValueError(f"unknown sink kind {settings['kind']!r}; "
                          f"available: {sorted(SINK_KINDS)}")
-    for k, (default, item) in _UNPORTED_SINK_FIELDS.items():
-        if k in settings and settings[k] != default:
-            raise NotImplementedError(f"sink setting {k}={settings[k]!r} is not ported "
-                                      f"yet: {item}")
-    return {k: v for k, v in settings.items() if k not in _UNPORTED_SINK_FIELDS}
+    return settings
 
 
 class DeviceSet:
@@ -281,6 +424,10 @@ class DeviceSet:
         self.waterfall: list[np.ndarray] = []
         self.waterfall_keep = 64
         self.histogram: np.ndarray | None = None  # (100, fft_size) uint8
+        # the daemon source, open while the worker runs (kept across
+        # rebuilds), and its receiver's frame statistics (kept after a stop)
+        self._daemon: DaemonSource | None = None
+        self.daemon_stats: daemon.FrameStats | None = None
 
     # -- configuration -------------------------------------------------------
 
@@ -407,6 +554,16 @@ class DeviceSet:
         if src.kind == "filesource":
             mm = sdriq.open_raw(src.file_path, fmt) if raw_file else sdriq.open_mmap(src.file_path)[1]
             return pipe, self._file_reader(mm)
+        if src.kind == "daemonsource":
+            key = (src.daemon_address, int(src.daemon_port))
+            if self._daemon is not None and self._daemon.key != key:
+                self._daemon.close()
+                self._daemon = None
+            if self._daemon is None:
+                self._daemon = DaemonSource(*key)
+                self.daemon_stats = self._daemon.stats
+            source = self._daemon  # a network stream: the position is the socket's
+            return pipe, lambda block: (lambda pos, count: source.read(count))
         cfg = testsource.TestSourceConfig(
             sample_rate=src.sample_rate, carrier_freq=src.carrier_freq,
             modulation=src.modulation, tone_freq=src.tone_freq, amplitude=src.amplitude,
@@ -567,12 +724,18 @@ class DeviceSet:
                 w.close()
             if recorder is not None:
                 recorder[1].close()
+            if self._daemon is not None:
+                self._daemon.close()
+                self._daemon = None
 
     def _publish_block(self, outs: dict, chans: list[ChannelState], wav_writers: dict) -> None:
         """One block's host outputs into the reports, the audio buffers and
         the WAV egress. `chans` are the channels the block was computed for;
         a channel removed since then gets nothing (its audio is dropped),
-        every other channel gets its part whatever changed meanwhile."""
+        every other channel gets its part whatever changed meanwhile. A
+        DATV pass runs after the lock is released: it takes seconds, and the
+        reports stay readable meanwhile."""
+        decodes = []
         with self._lock:
             self.spectrum = outs["spectrum"]
             self.scope = outs["scope"]
@@ -596,6 +759,12 @@ class DeviceSet:
                     if ch.uri == "sdrangel.channel.dsddemod":
                         ch.dsd_sync = ch.dsd_sync or DsdHostSync()
                         ch.host_report = {"dsd": ch.dsd_sync.feed(ch.latest_data["dibits"])}
+                    elif ch.uri == "sdrangel.channel.demoddatv":
+                        ch.datv = ch.datv or DatvHostDecode()
+                        todo = ch.datv.take(ch.latest_data["soft_i"], ch.latest_data["soft_q"],
+                                            bool(ch.settings.get("datvContinuous", False)))
+                        if todo is not None:
+                            decodes.append((ch, todo, ch.settings.get("fec_rate", "1/2")))
                     continue
                 audio = out["audio"]
                 # the demod's own gate state where it has one (nfmdemod.h getters)
@@ -610,6 +779,8 @@ class DeviceSet:
                     entry[1].writeframes(
                         np.clip(mono * 32768.0, -32768, 32767).astype(np.int16).tobytes())
             self.blocks_processed += 1
+        for ch, (soft_i, soft_q, rounds), fec_rate in decodes:
+            ch.host_report = {"datv": DatvHostDecode.decode(soft_i, soft_q, rounds, fec_rate)}
 
     def drain_audio(self, channel: int) -> np.ndarray:
         with self._lock:
@@ -633,14 +804,21 @@ def _to_i16_record(raw, input_format: str) -> np.ndarray:
 
 @dataclasses.dataclass
 class SinkSettings:
-    """Tx device sink settings (the filesink role)."""
+    """Tx device sink settings (the filesink role, or the sdrdaemonsink
+    network role with kind="daemonsink")."""
 
-    kind: str = "filesink"  # filesink (.sdriq)
-    file_path: str = ""  # the .sdriq the set records to (required to start)
+    kind: str = "filesink"  # filesink (.sdriq) | daemonsink (UDP superframes)
+    file_path: str = ""  # the .sdriq the filesink records to (required to start it)
     sample_rate: float = 384000.0  # the DAC rate
     center_frequency: float = 0.0
     log2_interp: int = 0
     throttle: bool = False  # pace blocks in real time (a DAC-clock stand-in)
+    # daemonsink: where its superframes go, their parity blocks (nbFECBlocks)
+    # and whether the receiver's loss reports drive that number
+    daemon_address: str = "127.0.0.1"
+    daemon_port: int = 9094
+    daemon_fec: int = 4
+    daemon_auto_fec: bool = False
 
 
 class TxDeviceSet:
@@ -650,8 +828,9 @@ class TxDeviceSet:
     source (a tone, `toneFrequency`; a looped 48 kHz WAV, `afFile`; the CW
     keyer, `cwText`/`cwWpm`, keying the tone) go through `TxPipeline`, and
     each int16 device block is read back one block behind and handed to a
-    BlockFifo, which a writer thread drains into the .sdriq. Channel and
-    sink settings apply at the next start, as in the JAX session."""
+    BlockFifo, which a writer thread drains into the .sdriq (filesink) or
+    sends as UDP superframes (daemonsink). Channel and sink settings apply
+    at the next start, as in the JAX session."""
 
     direction = "tx"
 
@@ -768,15 +947,16 @@ class TxDeviceSet:
             raise ValueError("Tx device set has no channels — add a modulator channel "
                              "before starting")
         sink = self.sink
-        if not sink.file_path:
+        if sink.kind == "filesink" and not sink.file_path:
             raise ValueError("the filesink needs file_path")
         chans = list(self.channels)  # the pipeline's channels, in its order
         specs, af = self._af_sources()
         pipe = TxPipeline(TxDeviceConfig(sink.sample_rate, sink.log2_interp,
                                          sink.center_frequency), specs, BLOCK_AF, self.device)
         block_seconds = pipe.device_block / sink.sample_rate
-        writer = sdriq.SdriqWriter(sink.file_path, sample_rate=int(sink.sample_rate),
-                                   center_frequency=int(sink.center_frequency))
+        writer = (DaemonSink(sink) if sink.kind == "daemonsink" else
+                  sdriq.SdriqWriter(sink.file_path, sample_rate=int(sink.sample_rate),
+                                    center_frequency=int(sink.center_frequency)))
         # the SampleSourceFifo role: the device blocks flow to a writer
         # thread through a bounded FIFO, so compute, read-back and disk IO
         # overlap, and a slow sink holds the producer back
@@ -798,8 +978,8 @@ class TxDeviceSet:
         def hand_over(out: torch.Tensor) -> None:
             nonlocal signal_s
             if not fifo.put(fetch(out)):
-                raise RuntimeError(f"the filesink stopped: {drain_error[0]!r}"
-                                   if drain_error else "the filesink stopped")
+                raise RuntimeError(f"the {sink.kind} stopped: {drain_error[0]!r}"
+                                   if drain_error else f"the {sink.kind} stopped")
             for ch in chans:
                 ch.audio_samples += BLOCK_AF
             self.blocks_processed += 1
@@ -1028,8 +1208,8 @@ class Session:
     def load_preset(self, group: str, name: str) -> None:
         """Replace the device sets with the preset's. The whole preset is
         checked first, so one that names a part not ported yet (a sharded
-        or daemon source, a daemon sink, an unported channel kind or key)
-        raises and leaves the running instance as it was."""
+        source, a UDP/RTP key) raises and leaves the running instance as it
+        was."""
         preset = migrate_preset(self.presets[f"{group}/{name}"])
         plan = []
         for entry in preset["deviceSets"]:

@@ -8,6 +8,7 @@ Sources are the testsource at 192 kS/s (65,536-sample blocks, 16,384 audio
 samples each) or small captures; every run ends by `run_blocks` or a stop.
 """
 
+import dataclasses
 import inspect
 import io
 import json
@@ -196,20 +197,21 @@ def test_channels_listing_and_schema(api):
     assert {u for u, c in by_uri.items() if c["direction"] == "rx"} == {
         NFM, "sdrangel.channel.amdemod", "sdrangel.channel.ssbdemod", "sdrangel.channel.wfmdemod",
         "sdrangel.channel.bfm", "sdrangel.channel.chanalyzer", "sdrangel.channel.lorademod",
-        "sdrangel.channel.dsddemod", "sdrangel.channel.demodatv", "sdrangel.channel.udpsrc"}
+        "sdrangel.channel.dsddemod", "sdrangel.channel.demodatv", "sdrangel.channel.udpsrc",
+        "sdrangel.channel.demoddatv"}
     assert {u for u, c in by_uri.items() if c["direction"] == "tx"} == {
         f"sdrangel.channeltx.mod{k}" for k in ("nfm", "am", "ssb", "wfm")}
-    assert body["channelcount"] == 14
+    assert body["channelcount"] == 15
     nfm = by_uri[NFM]["settings"]
     assert nfm["fm_deviation"] == {"type": "float", "default": 5000.0}
     assert "squelch_db" in nfm and "channel_rate" not in nfm
     modnfm = by_uri["sdrangel.channeltx.modnfm"]["settings"]
     assert modnfm["af_filter"] == {"type": "str", "default": "nfm_ref"}
     assert "block_af" not in modnfm and "input_offset" not in modnfm
-    assert body["sessionKeys"] == ["afFile", "audioFile", "cwText", "cwWpm",
+    assert body["sessionKeys"] == ["afFile", "audioFile", "cwText", "cwWpm", "datvContinuous",
                                    "inputFrequencyOffset", "toneFrequency"]
     code, body = _req(base, "/sdrangel/devices")
-    assert {d["kind"] for d in body["devices"]} == {"testsource", "filesource"}
+    assert {d["kind"] for d in body["devices"]} == {"testsource", "filesource", "daemonsource"}
 
 
 def test_channels_report_aggregate(api):
@@ -499,24 +501,18 @@ def test_api_bearer_token():
 # -- parts not ported yet: 501 with the ROADMAP item -------------------------------------
 
 _LEFT_OUT = {
-    "daemonsink": ("/sdrangel/config", "PUT", {"deviceSets": [
-        {"direction": "tx", "source": {"kind": "daemonsink"}, "channels": []}]}, "item 11"),
     "afUdp": ("/sdrangel/config", "PUT", {"deviceSets": [
         {"direction": "tx", "source": {}, "channels": [
             {"uri": "sdrangel.channeltx.modnfm", "inputFrequencyOffset": 0.0,
              "settings": {"afUdp": "127.0.0.1:9999"}}]}]}, "item 12"),
     "sharded": ("/sdrangel/deviceset/0/device/settings", "PATCH", {"sharded": True}, "item 9"),
     "mesh": ("/sdrangel/deviceset/0/device/settings", "PATCH", {"mesh_time": 4}, "item 9"),
-    "daemonsource": ("/sdrangel/deviceset/0/device", "PUT", {"hwType": "daemonsource"},
-                     "item 11"),
     "audioUdp": ("/sdrangel/deviceset/0/channel", "POST",
                  {"channelType": NFM, "audioUdp": "127.0.0.1:9999"}, "item 12"),
     "audioRtp": ("/sdrangel/deviceset/0/channel/0/settings", "PATCH",
                  {"audioRtp": "127.0.0.1:9999"}, "item 12"),
     "udpPort": ("/sdrangel/deviceset/0/channel/0/settings", "PUT", {"udpPort": 9999},
                 "item 12"),
-    "data_kind": ("/sdrangel/deviceset/0/channel", "POST",
-                  {"channelType": "sdrangel.channel.demoddatv"}, "item 6e"),
     "reference_export": ("/sdrangel/preset/file", "POST",
                          {"groupName": "g", "name": "p", "filePath": "p.b64",
                           "format": "reference"}, "item 13"),
@@ -659,6 +655,87 @@ def test_data_route_answers_as_the_jax_server(api):
         jsrv.server_close()
 
 
+def test_daemon_hw_types_and_fields_over_http(api):
+    """PUT …/device selects the daemon source on an Rx set and the daemon
+    sink on a Tx set, as the JAX server does; their fields take typed
+    PATCHes (a wrong type is a 400), answer as the session's settings, and
+    stand in the OpenAPI document."""
+    base, session = api
+    _req(base, "/sdrangel/devicesets", "POST")
+    _req(base, "/sdrangel/devicesets", "POST", {"direction": "tx"})
+    code, body = _req(base, "/sdrangel/deviceset/0/device", "PUT", {"hwType": "daemonsource"})
+    assert code == 200 and body["kind"] == "daemonsource"
+    code, body = _req(base, "/sdrangel/deviceset/0/device/settings", "PATCH",
+                      {"daemon_address": "127.0.0.2", "daemon_port": 9300})
+    assert code == 200 and body == dataclasses.asdict(session.device_sets[0].source)
+    assert (body["daemon_address"], body["daemon_port"]) == ("127.0.0.2", 9300)
+    assert _req(base, "/sdrangel/deviceset/0/device/settings", "PATCH",
+                {"daemon_port": "9300"})[0] == 400
+    code, body = _req(base, "/sdrangel/deviceset/1/device", "PUT", {"hwType": "daemonsink"})
+    assert code == 200 and body["kind"] == "daemonsink"
+    code, body = _req(base, "/sdrangel/deviceset/1/device/settings", "PATCH",
+                      {"daemon_address": "127.0.0.3", "daemon_port": 9301, "daemon_fec": 16,
+                       "daemon_auto_fec": True})
+    assert code == 200 and body == dataclasses.asdict(session.device_sets[1].sink)
+    assert _req(base, "/sdrangel/deviceset/1/device/settings", "PATCH",
+                {"daemon_auto_fec": 1})[0] == 400
+    _, doc = _req(base, "/sdrangel/openapi")
+    schemas = doc["components"]["schemas"]
+    assert {"daemon_address", "daemon_port"} <= set(schemas["SourceSettings"]["properties"])
+    assert "daemonsource" in schemas["SourceSettings"]["properties"]["kind"]["enum"]
+    assert {"daemon_address", "daemon_port", "daemon_fec", "daemon_auto_fec"} <= set(
+        schemas["SinkSettings"]["properties"])
+    assert "daemonFrames" in schemas["DeviceReport"]["properties"]
+
+
+def test_datv_and_the_daemon_source_over_http(api, tmp_path):
+    """A DVB-S capture (tests/test_torch_datv.py) reaches a DATV channel in
+    continuous mode through a daemon source fed superframes by a port
+    DaemonSender: the report's "datv" carries the decode (rounds, packets,
+    no RS failure, programme 7's H.264 stream) as the session holds it, the
+    data route carries soft_i/soft_q as the channel's newest block, and the
+    device report the daemon source's frame counts."""
+    from sdrangel_tpu_torch.io import daemon
+    from test_torch_datv import _datv_capture
+
+    base, session = api
+    mm = sdriq.open_mmap(_datv_capture(tmp_path, "1/2"))[1]
+    _req(base, "/sdrangel/devicesets", "POST")
+    assert _req(base, "/sdrangel/deviceset/0/device", "PUT", {"hwType": "daemonsource"})[0] == 200
+    assert _req(base, "/sdrangel/deviceset/0/device/settings", "PATCH",
+                {"daemon_port": 0, "sample_rate": 1_000_000.0, "run_blocks": 4})[0] == 200
+    code, body = _req(base, "/sdrangel/deviceset/0/channel", "POST",
+                      {"channelType": "sdrangel.channel.demoddatv", "symbol_rate": 250_000.0,
+                       "datvContinuous": True})
+    assert code == 201, body
+    assert _req(base, "/sdrangel/deviceset/0/device/run", "POST")[0] == 200
+    ds = session.device_sets[0]
+    src = _poll(lambda: ds._daemon)
+    tx = daemon.DaemonSender("127.0.0.1", src.rx.port, n_fec=4, sample_rate=1_000_000)
+    try:
+        room = tx.payload_room // 4
+        for k in range(-(-mm.shape[0] // room)):
+            tx.send_iq(np.ascontiguousarray(mm[k * room:(k + 1) * room]))
+            time.sleep(0.002)
+        _wait_idle(session)
+    finally:
+        tx.close()
+    ch = ds.channels[0]
+    _, rep = _req(base, "/sdrangel/deviceset/0/channel/0/report")
+    assert rep["dataBlocks"] == 4 and rep["dataKeys"] == ["soft_i", "soft_q"]
+    assert rep["datv"] == ch.host_report["datv"]
+    datv = rep["datv"]
+    assert datv["rounds"] == 1 and datv["packets"] > 20 and datv["rsFailed"] == 0, datv
+    progs = {p["program"]: p for p in datv["ts"]["programs"]}
+    assert progs[7]["streams"][0]["codec"] == "H.264 video"
+    code, body = _req(base, "/sdrangel/deviceset/0/channel/0/data")
+    assert code == 200 and body["dataBlocks"] == 4
+    for k in ("soft_i", "soft_q"):
+        assert body["data"][k] == _trimmed(ch.latest_data[k])
+    _, dev = _req(base, "/sdrangel/deviceset/0/device/report")
+    assert dev["daemonFrames"]["framesOk"] > 0 and dev["daemonFrames"]["framesFailed"] == 0
+
+
 def test_modatv_is_no_tx_kind_as_in_jax(api):
     """sdrangel.channeltx.modatv: the JAX package has an ATV modulator as
     library code and no Tx kind for it, so its sessions and TxPipeline raise
@@ -697,6 +774,10 @@ def test_modatv_is_no_tx_kind_as_in_jax(api):
                        device=CPU)
     with pytest.raises(KeyError):
         jtx.TxPipeline(jtx.TxDeviceConfig(96_000.0), [jtx.TxChannelSpec(modatv, 0.0, {})])
+    from sdrangel_tpu_torch.channels import registry as preg
+
+    with pytest.raises(KeyError):
+        preg.check_kind(modatv, "tx")
 
 
 # -- Tx device sets (tests/test_api.py:192, :356, :1016, :1268) ----------------------------
@@ -770,7 +851,7 @@ def test_singular_deviceset_tx_query(api):
     code, body = _req(base, "/sdrangel/deviceset/0")
     assert body["direction"] == "tx" and body["source"]["kind"] == "filesink"
     code, body = _req(base, "/sdrangel/deviceset/0/device", "PUT", {"hwType": "daemonsink"})
-    assert code == 501 and "ROADMAP.md queue 1, item 11" in body["message"]
+    assert code == 200 and body["kind"] == "daemonsink"
     code, body = _req(base, "/sdrangel/deviceset", "DELETE")
     assert code == 200 and body["devicesetcount"] == 0
 

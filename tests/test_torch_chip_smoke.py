@@ -71,3 +71,35 @@ def test_ptxas_report_names_each_kpll_kernel():
     lines = cs.ptxas_summary(report)
     assert [line.split(":")[0] for line in lines] == list(mangled)
     assert all(" 0 bytes spill stores" in line for line in lines)
+
+
+def test_phase_codec_runs_on_the_host():
+    """Phase 11d needs no card: the native and NumPy GF(256) codecs agree on
+    one superframe and make_superframe equals the plain re-encode."""
+    times = cs.phase_codec("CPU")
+    assert times["encode"] > 0 and times["decode"] > 0
+
+
+def test_plain_superframe_tracks_the_wire_format():
+    """The re-encode phase 11d holds make_superframe to: every datagram,
+    with and without parity, at an empty and at a full payload."""
+    from sdrangel_tpu_torch.io import daemon
+
+    room = (daemon.DATA_BLOCKS - 1) * daemon.BLOCK_BYTES
+    for payload, n_fec in ((b"", 0), (bytes(range(256)) * (room // 256), 4),
+                           (b"\x01" * room, 16)):
+        assert daemon.make_superframe(3, payload, n_fec) == cs.plain_superframe(3, payload, n_fec)
+
+
+def test_ts_check_finds_the_group_head():
+    """Phase 11a's check: recovered packets must equal the sent stream from
+    one scrambler-group head (a multiple of 8) on, with RS failing nowhere."""
+    sent = cs.ts_stream(80, seed=1)
+    assert sent.shape == (80, 188) and (sent[:, 0] == 0x47).all()
+    got = sent[16:60].tobytes()
+    stats = {"packets": 44, "rsFailed": 0}
+    assert cs.ts_check(got, stats, sent, "test") == 16
+    with pytest.raises(RuntimeError, match="group heads"):
+        cs.ts_check(sent[12:60].tobytes(), {"packets": 48, "rsFailed": 0}, sent, "test")
+    with pytest.raises(RuntimeError, match="rsFailed"):
+        cs.ts_check(got, {"packets": 44, "rsFailed": 1}, sent, "test")

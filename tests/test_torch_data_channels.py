@@ -407,15 +407,6 @@ def test_data_kinds_register_as_in_jax(uri):
                 assert pk.block_factor(rate, settings) == jk.block_factor(rate, settings)
 
 
-def test_datv_answers_with_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6e"):
-        preg.check_kind("sdrangel.channel.demoddatv")
-    with pytest.raises(NotImplementedError, match="io/fec.py"):
-        preg.validate_settings("sdrangel.channel.dsddemod", {"datvContinuous": True})
-    with pytest.raises(KeyError):
-        preg.check_kind("sdrangel.channeltx.modatv", "tx")
-
-
 # -- RxPipeline: the five data kinds and an NFM channel ---------------------------------------
 
 RATE = 1_536_000.0

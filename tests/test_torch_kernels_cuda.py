@@ -581,6 +581,7 @@ def _stereo_fm(size: int, rate: float) -> np.ndarray:
     ("sdrangel.channel.chanalyzer", 100_000.0, 48_000.0, {"ssb": True}),
     ("sdrangel.channel.udpsrc", 100_000.0, 48_000.0, {"fmt": "nfm"}),
     ("sdrangel.channel.demodatv", 0.0, 6e6, {"standard": "hskip", "lines": 64, "fps": 25.0}),
+    ("sdrangel.channel.demoddatv", 0.0, 384_000.0, {"symbol_rate": 96_000.0}),
 ])
 def test_data_channels_on_card_match_cpu(cuda_device, uri, offset, requested, settings):
     """Each data kind on the card against the CPU pipeline over 3 blocks:

@@ -304,25 +304,21 @@ def _tx_preset(s, source, channels=()):
 
 
 @pytest.mark.parametrize("case", [
-    "sharded", "daemonsource", "audioUdp", "audioRtp", "udpAddress",
-    "reference_export", "tlv_import", "data_channel", "daemonsink", "afUdp",
+    "sharded", "audioUdp", "audioRtp", "udpAddress", "reference_export", "tlv_import", "afUdp",
 ])
 def test_left_out_parts_raise_with_their_roadmap_item(tmp_path, case):
     s = psession.Session(device=CPU, preset_dir=str(tmp_path))
     ds = s.add_device_set()
     item = {
-        "sharded": "item 9", "daemonsource": "item 11",
-        "audioUdp": "item 12", "audioRtp": "item 12", "udpAddress": "item 12",
-        "reference_export": "item 13", "tlv_import": "item 13", "data_channel": "item 6",
-        "daemonsink": "item 11", "afUdp": "item 12",
+        "sharded": "item 9", "audioUdp": "item 12", "audioRtp": "item 12",
+        "udpAddress": "item 12", "reference_export": "item 13", "tlv_import": "item 13",
+        "afUdp": "item 12",
     }[case]
     actions = {
-        "daemonsink": lambda: _tx_preset(s, {"kind": "daemonsink"}),
         "afUdp": lambda: _tx_preset(s, {}, [{
             "uri": "sdrangel.channeltx.modnfm", "inputFrequencyOffset": 0.0,
             "settings": {"afUdp": "127.0.0.1:9999"}}]),
         "sharded": lambda: ds.update_source({"sharded": True}),
-        "daemonsource": lambda: ds.update_source({"kind": "daemonsource"}),
         "audioUdp": lambda: ds.add_channel(NFM, {"audioUdp": "127.0.0.1:9999"}),
         "audioRtp": lambda: ds.add_channel(NFM, {"audioRtp": "127.0.0.1:9999"}),
         "udpAddress": lambda: ds.add_channel(NFM, {"udpAddress": "127.0.0.1"}),
@@ -330,7 +326,6 @@ def test_left_out_parts_raise_with_their_roadmap_item(tmp_path, case):
                                      s.export_preset_file("g", "p", "p.b64", fmt="reference")),
         "tlv_import": lambda: ((tmp_path / "ref.b64").write_text("AAAAAAE="),
                                s.import_preset_file("ref.b64")),
-        "data_channel": lambda: ds.add_channel("sdrangel.channel.demoddatv", {}),
     }
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
         actions[case]()
@@ -407,6 +402,64 @@ def test_jax_presets_load_with_inert_defaults():
     assert ds.source.sample_rate == 96_000.0
     assert (ds.channels[0].uri, ds.channels[0].frequency_offset) == (AM, 1000.0)
     assert ds.channels[0].settings == {"volume": 2.0}
+
+
+def test_jax_daemon_presets_load():
+    """A JAX preset with a daemon source and a daemon sink at settings of
+    their own loads into the port with those settings."""
+    from sdrangel_tpu.runtime.session import Session as JaxSession
+
+    js = JaxSession()
+    js.add_device_set().update_source({"kind": "daemonsource", "daemon_address": "127.0.0.2",
+                                       "daemon_port": 9200, "sample_rate": 1.536e6})
+    js.add_device_set("tx").update_source({"kind": "daemonsink", "daemon_port": 9201,
+                                           "daemon_fec": 16, "daemon_auto_fec": True})
+    s = psession.Session(device=CPU)
+    s.presets["g/jax"] = js.save_preset("g", "jax")
+    s.load_preset("g", "jax")
+    rx, tx = s.device_sets
+    assert (rx.source.kind, rx.source.daemon_address, rx.source.daemon_port) == (
+        "daemonsource", "127.0.0.2", 9200)
+    assert (tx.sink.kind, tx.sink.daemon_port, tx.sink.daemon_fec, tx.sink.daemon_auto_fec) == (
+        "daemonsink", 9201, 16, True)
+
+
+def test_daemon_source_set_equals_the_file_set(tmp_path):
+    """An Rx set whose daemon source is fed a capture as superframes (a
+    port DaemonSender, paced) gives the same NFM audio, block for block, as
+    a file set playing the capture: the stream reaches the pipeline whole
+    and in order. Its frame statistics count the frames it decoded, none
+    failed."""
+    from sdrangel_tpu_torch.io import daemon
+
+    n_blocks = 4
+    path = _capture(str(tmp_path / "d.sdriq"), 4 * 65536 * n_blocks)
+    mm = sdriq.open_mmap(path)[1]
+    channels = [(NFM, {"inputFrequencyOffset": 20_000.0})]
+    ref = _port_set({"kind": "filesource", "file_path": path, "run_blocks": n_blocks}, channels)
+    _run(ref)
+    ds = _port_set({"kind": "daemonsource", "daemon_port": 0, "sample_rate": RATE,
+                    "run_blocks": n_blocks}, channels)
+    ds.start()
+    t0 = time.time()
+    while ds._daemon is None and time.time() - t0 < 30:
+        time.sleep(0.01)
+    tx = daemon.DaemonSender("127.0.0.1", ds._daemon.rx.port, n_fec=2)
+    room = tx.payload_room // 4
+    try:
+        for k in range(-(-mm.shape[0] // room)):
+            tx.send_iq(np.ascontiguousarray(mm[k * room:(k + 1) * room]))
+            time.sleep(0.002)
+        while ds.running and time.time() - t0 < 120:
+            time.sleep(0.02)
+    finally:
+        tx.close()
+        ds.stop()
+    assert not ds.error, ds.error
+    assert ds.blocks_processed == ref.blocks_processed == n_blocks
+    np.testing.assert_array_equal(ds.drain_audio(0), ref.drain_audio(0))
+    assert 0 < ds.daemon_stats.frames_ok <= tx.frame_index and ds.daemon_stats.frames_failed == 0
+    assert ds._daemon is None  # closed with the worker
 
 
 def test_build_runs_nvcc_once_for_many_threads(tmp_path, monkeypatch):

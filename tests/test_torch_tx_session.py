@@ -245,9 +245,8 @@ def test_tx_set_refusals(tmp_path):
         ds.add_channel(NFM_MOD, {"not_a_setting": 1})
     with pytest.raises(ValueError, match="unknown sink kind"):
         ds.update_source({"kind": "testsource"})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 11"):
-        ds.update_source({"daemon_fec": 8})
-    ds.update_source({"daemon_fec": 4, "daemon_port": 9094})  # the inert defaults pass
+    ds.update_source({"daemon_fec": 8, "daemon_port": 9094})  # the daemonsink's fields
+    assert ds.sink.daemon_fec == 8 and ds.sink.kind == "filesink"
     with pytest.raises(ValueError, match="direction"):
         s.add_device_set("both")
 
