@@ -1,6 +1,6 @@
 """Drive the PyTorch port's Rx product path, its channel-bank gear, its
-receivers, Tx, data channels, DATV and daemon transport once on one CUDA
-card.
+receivers, Tx, data channels, DATV and daemon transport, RDS, network
+egress and ingest, reference presets and library once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -162,6 +162,45 @@ power limit as nvidia-smi reports them):
          superframe (128 × 512 B, 16 parity blocks, 16 erasures), their
          host times, and make_superframe's datagrams against a plain
          re-encode.
+  12. the last single-card modules (no kernel of their own; K1 in front):
+     (a) RDS at broadcast width: phase 9d's stereo MPX plus an RDS subcarrier
+         at 57 kHz coherent with the pilot, a 22-group cycle of 0A (PI, PS),
+         2A (RadioText), 4A (clock-time) and 8A (a single-group TMC event),
+         6 blocks of 10,240,000; K1 ÷32 (decimate_flat_raw), BFM with
+         rds_active on the card, the RDS baseband read back per block into
+         the port's RDSDecoder: K1 once per block, PI, PS, the RadioText,
+         the clock-time and the TMC event's text as sent, the share of
+         blocks corrected or failed, the left tone above 25 dB, the
+         baseband ≥ 80 dB from the CPU chain on 2 blocks; ms/block, the
+         device's busy time by torch.profiler and the host decoder's
+         seconds per second of signal;
+     (b) network egress from a cuda Session served in this process,
+         playing phase 7's product capture (÷64, 6 blocks): NFM +20 kHz
+         with audioUdp and audioRtp, UDPSrc iq16 at +20 kHz, all aimed at
+         sockets of this process: K1 once per block, the UDP mono16
+         datagrams within 1 LSB of the drained audio, the RTP packets L16
+         mono in contiguous sequence with the UDP stream's samples and an
+         RTCP SR, UDPSrc's datagrams byte for byte the iq16 of every block
+         the set published, in order, and within 1 LSB of its /data, the
+         audio route listing both destinations; datagrams a second;
+     (c) Tx AF over UDP: a Tx set on the card (9.6 MS/s ×64, NFM +20 kHz,
+         filesink) whose afUdp source takes a 1 kHz mono16 tone sent at
+         48 kHz pace, 48 blocks; its capture through RxPipeline ÷64 on the
+         card (3 blocks, K1 once per block): the tone above 25 dB;
+     (d) reference presets: tests/goldens/refpreset.b64 imported over PUT
+         /sdrangel/preset/file and loaded on a cuda Session (seven channels,
+         their offsets and the front end as tests/test_refpreset.py
+         asserts), run 3 blocks with K1 once per block, exported again with
+         format reference, and read back by the port's parse_preset to the
+         golden's four audio channels;
+     (e) the library: decimate_flat_iq (one K1 f32 launch) at the gear block
+         (2^25) and the product block against its plain version, equal to
+         decimate_flat on the same samples as complex64, three streamed
+         parts equal to one block, timed beside its bound and F.conv1d;
+         fftcorr on the card against the CPU; `demod --device cuda --in` on
+         the product capture through the native .sdriq loader (which must
+         build) and through the memmap: the same WAV bytes, the loader's
+         read time per block.
 Then a JSON line of the kernels, and last the ok line. Any failed check
 raises: the script then exits non-zero and prints no ok line. It needs a
 card; without one it exits non-zero at once.
@@ -192,8 +231,9 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 
 import sdrangel_tpu_torch.dsp.decimators as dec
+from sdrangel_tpu_torch.__main__ import main as cli_main
 from sdrangel_tpu_torch.api.server import make_server
-from sdrangel_tpu_torch.io import daemon, fec, sdriq, testsource, wav
+from sdrangel_tpu_torch.io import daemon, fec, native, rtp, sdriq, testsource, udp, wav
 from sdrangel_tpu_torch.kernels import build
 from sdrangel_tpu_torch.kernels import decimator as kdec
 from sdrangel_tpu_torch.kernels import flat_decimate as k1_kernel
@@ -213,7 +253,7 @@ from sdrangel_tpu_torch.profile_product import (
     chainsharded_offsets,
     receiver_pipeline,
 )
-from sdrangel_tpu_torch.channels import demod_bfm, demod_datv, dsdsync, dvbs, tsdemux
+from sdrangel_tpu_torch.channels import demod_bfm, demod_datv, dsdsync, dvbs, rds, rdstmc, tsdemux
 from sdrangel_tpu_torch.channels.modulators import (
     ATVModConfig,
     atv_composite,
@@ -222,7 +262,7 @@ from sdrangel_tpu_torch.channels.modulators import (
 )
 from sdrangel_tpu_torch.channels.registry import requested_rate
 from sdrangel_tpu_torch.dsp import channelizer as chan
-from sdrangel_tpu_torch.dsp import fftfilt
+from sdrangel_tpu_torch.dsp import fftcorr, fftfilt
 from sdrangel_tpu_torch.dsp import interpolators as interp
 from sdrangel_tpu_torch.dsp import phaselock
 from sdrangel_tpu_torch.dsp import scope as dsp_scope
@@ -234,7 +274,8 @@ from sdrangel_tpu_torch.runtime.engine import (
     fetch,
     pack_outs,
 )
-from sdrangel_tpu_torch.runtime.session import DsdHostSync, Session
+from sdrangel_tpu_torch.runtime import refpreset
+from sdrangel_tpu_torch.runtime.session import DeviceSet, DsdHostSync, Session
 from sdrangel_tpu_torch.runtime.tx import TxChannelSpec, TxDeviceConfig, TxPipeline
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -2579,6 +2620,592 @@ def phase_codec(tag: str) -> dict:
     return times
 
 
+# -- phase 12: RDS, network egress and ingest, reference presets, the library -------
+
+RDS_PI = 0xD3C2
+RDS_PTY = 10
+RDS_PS = "SDRANGEL"
+RDS_RADIOTEXT = "Broadcast FM with RDS on the card".ljust(64)
+RDS_MJD, RDS_HOUR, RDS_MINUTE, RDS_TZ = 61269, 14, 30, 4  # 2026-08-17 14:30 UTC+2
+RDS_CLOCK = "2026-08-17 14:30+2h"
+TMC_EVENT, TMC_LOCATION = 501, 0x0C21
+RDS_BLOCKS = 6
+RDS_LEVEL = 0.06  # the RDS subcarrier's share of the MPX (tests/test_bfm.py's)
+NET_BLOCKS = 6
+TX_AF_BLOCKS = 48  # Tx blocks of 4096 AF samples: three 13,107,200-sample Rx blocks
+REFPRESET = os.path.join(REPO, "tests", "goldens", "refpreset.b64")
+REFPRESET_BLOCKS = 3
+REFPRESET_CHANNELS = [  # tests/test_refpreset.py's channels and offsets
+    (NFM, 12_500.0), (AM, -7_000.0), ("sdrangel.channel.ssbdemod", None),
+    ("sdrangel.channel.wfmdemod", None), (BFM, 90_000.0), ("sdrangel.channel.dsddemod",
+                                                            -250_000.0), (UDPSRC, 42_000.0)]
+
+
+def rds_group_cycle() -> list[list[int]]:
+    """One cycle of 22 RDS groups: 0A (PI, PTY, PS in 4 segments), 2A (the
+    RadioText in 16), 4A (clock-time) and 8A (a single-group TMC event:
+    roadworks, extent 4, 1 hour)."""
+    groups = [[RDS_PI, (0 << 12) | (1 << 10) | (RDS_PTY << 5) | seg, 0xE0CD,
+               (ord(RDS_PS[2 * seg]) << 8) | ord(RDS_PS[2 * seg + 1])] for seg in range(4)]
+    groups += [[RDS_PI, (2 << 12) | (RDS_PTY << 5) | seg,
+                (ord(RDS_RADIOTEXT[4 * seg]) << 8) | ord(RDS_RADIOTEXT[4 * seg + 1]),
+                (ord(RDS_RADIOTEXT[4 * seg + 2]) << 8) | ord(RDS_RADIOTEXT[4 * seg + 3])]
+               for seg in range(16)]
+    groups.append([RDS_PI, (4 << 12) | (RDS_PTY << 5) | ((RDS_MJD >> 15) & 0x3),
+                   ((RDS_MJD & 0x7FFF) << 1) | (RDS_HOUR >> 4),
+                   ((RDS_HOUR & 0xF) << 12) | (RDS_MINUTE << 6) | RDS_TZ])
+    groups.append([RDS_PI, (8 << 12) | (RDS_PTY << 5) | (1 << 3) | 3,
+                   (1 << 15) | (1 << 14) | (4 << 11) | TMC_EVENT, TMC_LOCATION])
+    return groups
+
+
+def rds_bfm_blocks(dev, n_blocks: int, block: int, rate: float) -> list[np.ndarray]:
+    """Phase 9d's stereo MPX (L 1 kHz, R silent, 10 % pilot sin θ, 75 kHz
+    deviation) plus the RDS biphase waveform of the group cycle on the
+    57 kHz subcarrier sin 3θ, coherent with the pilot (tests/test_bfm.py's
+    construction); made in float64 on `dev`, int16 I/Q."""
+    n_bits = int(n_blocks * block / rate * demod_bfm.RDS_SYMBOL_RATE) + 208
+    cycle = np.concatenate([rds.encode_group(g) for g in rds_group_cycle()])
+    wave8 = torch.from_numpy(rds.bits_to_waveform(np.resize(cycle, n_bits), sps=8)).to(
+        dev, torch.float64)  # 9500 samples/s
+    out, phase = [], 0.0
+    for b in range(n_blocks):
+        n = torch.arange(b * block, (b + 1) * block, device=dev, dtype=torch.float64)
+        tt = n / rate
+        left = torch.sin(2 * np.pi * 1000.0 * tt)
+        theta = 2 * np.pi * 19_000.0 * tt
+        mpx = (0.45 * left * (1.0 + torch.sin(2 * theta)) + 0.1 * torch.sin(theta)
+               + RDS_LEVEL * wave8[(n * (9500.0 / rate)).long()] * torch.sin(3 * theta))
+        ph = phase + 2 * np.pi * 75_000.0 * torch.cumsum(mpx, 0) / rate
+        phase = float(ph[-1])
+        iq = torch.stack([torch.cos(ph), torch.sin(ph)], -1) * (0.5 * 32768.0)
+        out.append(iq.clamp(-32768, 32767).to(torch.int16).cpu().numpy())
+    return out
+
+
+def rds_chain(dev, cfg, blocks: list[np.ndarray]):
+    """K1 ÷32 (decimate_flat_raw) and BFM with RDS on `dev`, block by block:
+    yields (audio, RDS baseband) read back per block."""
+    dstate = dec.init_flat_state(5, dev, raw=True)
+    state = demod_bfm.make_state(cfg, dev)
+    for block in blocks:
+        dstate, bb = dec.decimate_flat_raw(dstate, torch.from_numpy(block).to(dev), 5)
+        state, outs = demod_bfm.process(state, bb, cfg)
+        yield outs.audio.cpu().numpy(), outs.rds_baseband.cpu().numpy()
+
+
+def phase_rds(dev: torch.device, tag: str) -> int:
+    """12a: RDS at broadcast width behind K1, the host decoder on the card's
+    RDS baseband."""
+    t0 = time.perf_counter()
+    blocks = rds_bfm_blocks(dev, RDS_BLOCKS, SLICE_BLOCK, PRODUCT_RATE)
+    gen_s = time.perf_counter() - t0
+    pipe = RxPipeline(DeviceConfig(PRODUCT_RATE, log2_decim=5),
+                      [ChannelSpec(BFM, 0.0, {"rds_active": True}, 180_000.0)], dev)
+    cfg = pipe.demod_cfgs[0]
+    check(pipe.device_block == SLICE_BLOCK and pipe.plans[0].signs == () and cfg.rds_active,
+          f"rds: device block {pipe.device_block}, plan {pipe.plans[0]}")
+    list(rds_chain(dev, cfg, blocks[:1]))  # warm-up
+    reset_counts()
+    decoder = rds.RDSDecoder(sps=8)
+    audio, baseband, groups = [], [], []
+    decode_s = 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a, bb in rds_chain(dev, cfg, blocks):
+        audio.append(a)
+        baseband.append(bb)
+        t1 = time.perf_counter()
+        groups += decoder.feed_baseband(bb)
+        decode_s += time.perf_counter() - t1
+    elapsed = time.perf_counter() - t0
+    k1 = flat_decimate.launches
+    check(k1 == RDS_BLOCKS, f"rds: K1 launched {k1} times for {RDS_BLOCKS} blocks")
+    st = decoder.status
+    events = st.tmc_events
+    check(st.pi == RDS_PI and st.pty == RDS_PTY, f"rds: PI {st.pi} PTY {st.pty}")
+    check(st.ps_name == RDS_PS, f"rds: PS {st.ps_name!r}")
+    check(st.radiotext == RDS_RADIOTEXT, f"rds: RadioText {st.radiotext!r}")
+    check(st.clock_time == RDS_CLOCK, f"rds: clock-time {st.clock_time!r}")
+    want_text = rdstmc.event_text(TMC_EVENT)
+    check(bool(events) and events[-1]["event"] == TMC_EVENT
+          and events[-1]["event_text"] == want_text and events[-1]["location"] == TMC_LOCATION,
+          f"rds: TMC events {events[-1:]}")
+    decoded = 4 * st.groups_ok
+    left = np.concatenate(audio)[:, 0]
+    snr = tone_snr(left[len(left) // 2:].astype(np.float64), 1000.0, 48_000.0)
+    check(snr > 25.0, f"rds: left tone SNR {snr:.1f} dB")
+    t0 = time.perf_counter()
+    cpu_bb = np.concatenate([bb for _, bb in rds_chain(torch.device("cpu"), cfg, blocks[:2])])
+    cpu_s = time.perf_counter() - t0
+    card_bb = np.concatenate(baseband[:2])
+    agree = agreement_db(np.stack([cpu_bb.real, cpu_bb.imag]),
+                         np.stack([card_bb.real, card_bb.imag]))
+    check(agree >= 80.0, f"rds: RDS baseband card vs CPU {agree:.1f} dB")
+    signal_s = RDS_BLOCKS * SLICE_BLOCK / PRODUCT_RATE
+    print(f"phase 12a rds: 10 MS/s /32 stereo MPX with RDS at 57 kHz ({len(rds_group_cycle())}"
+          f"-group cycle of 0A/2A/4A/8A), {RDS_BLOCKS} blocks of {SLICE_BLOCK} made on the "
+          f"card in {gen_s:.2f} s (set-up); {elapsed / RDS_BLOCKS * 1e3:.3f} ms/block with the per-block "
+          f"read-back and host decode, real-time factor {signal_s / elapsed:.2f}; K1 launches "
+          f"{k1}; {len(groups)} groups, groups_ok {st.groups_ok}, blocks corrected "
+          f"{st.blocks_corrected} ({100 * st.blocks_corrected / max(decoded, 1):.2f} % of "
+          f"{decoded} decoded blocks), blocks failed {st.blocks_with_errors} "
+          f"({100 * st.blocks_with_errors / max(decoded + st.blocks_with_errors, 1):.2f} %); PI "
+          f"0x{st.pi:04X} PS {st.ps_name!r} RT {st.radiotext.strip()!r} CT {st.clock_time!r} "
+          f"TMC {events[-1]['event']} {events[-1]['event_text']!r}; left tone SNR {snr:.2f} dB; "
+          f"host decoder {decode_s / signal_s:.4f} s per second of signal; RDS baseband card vs "
+          f"CPU on 2 blocks {agree:.2f} dB (CPU run {cpu_s:.1f} s) [{tag}]", flush=True)
+    print(f"phase 12a rds: device time of 2 blocks by torch.profiler [{tag}]", flush=True)
+    _device_time(lambda: list(rds_chain(dev, cfg, blocks[:2])), 2, elapsed / RDS_BLOCKS * 2)
+    return k1
+
+
+class Catcher:
+    """A UDP socket on 127.0.0.1 drained by a thread while a phase runs."""
+
+    def __init__(self, port: int = 0):
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 22)
+        self.sock.bind(("127.0.0.1", port))
+        self.sock.settimeout(0.1)
+        self.port = self.sock.getsockname()[1]
+        self.datagrams: list[bytes] = []
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._drain, daemon=True)
+        self._thread.start()
+
+    def _drain(self) -> None:
+        while not self._done.is_set():
+            with contextlib.suppress(socket.timeout):
+                self.datagrams.append(self.sock.recv(65536))
+
+    def close(self) -> list[bytes]:
+        time.sleep(0.3)  # the last datagrams of a stopped set
+        self._done.set()
+        self._thread.join()
+        self.sock.close()
+        return self.datagrams
+
+
+def rtp_catchers() -> tuple[Catcher, Catcher]:
+    """Catchers on a free port p (RTP) and p + 1 (its RTCP)."""
+    for _ in range(50):
+        rtp_c = Catcher()
+        try:
+            return rtp_c, Catcher(rtp_c.port + 1)
+        except OSError:
+            rtp_c.close()
+    raise RuntimeError("no free RTP/RTCP port pair")
+
+
+def serve(session: Session):
+    srv = make_server(session, "127.0.0.1", 0)
+    threading.Thread(target=srv.serve_forever, kwargs={"poll_interval": 0.05},
+                     daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def run_to_idle(base: str, what: str, index: int = 0, limit_s: float = 300.0) -> float:
+    t0 = time.perf_counter()
+    code, reply = http(base, f"/sdrangel/deviceset/{index}/device/run", "POST")
+    check(code == 200, f"{what}: run {reply}")
+    while http(base, f"/sdrangel/deviceset/{index}")[1]["state"] == "running":
+        check(time.perf_counter() - t0 < limit_s, f"{what}: still running after {limit_s} s")
+        time.sleep(0.01)
+    _, entry = http(base, f"/sdrangel/deviceset/{index}")
+    check(entry["state"] == "idle" and not entry["error"],
+          f"{what}: {entry['state']} {entry['error']!r}")
+    return time.perf_counter() - t0
+
+
+def phase_net(path: str, tag: str) -> int:
+    """12b: audio over UDP and RTP and UDPSrc's datagrams, from a cuda
+    Session served in this process, the product capture played once."""
+    udp_c, (rtp_c, rtcp_c), data_c = Catcher(), rtp_catchers(), Catcher()
+    session = Session(device=DEVICE)
+    srv, base = serve(session)
+    published: list[np.ndarray] = []  # UDPSrc's I/Q of each block the set published
+    publish = DeviceSet._publish_block
+
+    def recording_publish(ds, outs, chans, egress):
+        publish(ds, outs, chans, egress)
+        d = next(ch.latest_data for ch in chans if ch.uri == UDPSRC)
+        published.append((d["iq_real"] + 1j * d["iq_imag"]).astype(np.complex64))
+
+    DeviceSet._publish_block = recording_publish
+    try:
+        code, reply = http(base, "/sdrangel/devicesets", "POST")
+        check(code == 201, f"net: add device set {reply}")
+        code, reply = http(base, "/sdrangel/deviceset/0/device/settings", "PATCH", {
+            "kind": "filesource", "file_path": path, "log2_decim": 6,
+            "run_blocks": NET_BLOCKS, "publish_every": 1})
+        check(code == 200, f"net: device settings {reply}")
+        udp_to, rtp_to = f"127.0.0.1:{udp_c.port}", f"127.0.0.1:{rtp_c.port}"
+        code, reply = http(base, "/sdrangel/deviceset/0/channel", "POST", {
+            "channelType": NFM, "inputFrequencyOffset": 20_000.0, "squelch_db": -60.0,
+            "audioUdp": udp_to, "audioRtp": rtp_to})
+        check(code == 201, f"net: add NFM {reply}")
+        code, reply = http(base, "/sdrangel/deviceset/0/channel", "POST", {
+            "channelType": UDPSRC, "inputFrequencyOffset": 20_000.0, "fmt": "iq",
+            "udpAddress": "127.0.0.1", "udpPort": data_c.port, "udpFormat": "iq16"})
+        check(code == 201, f"net: add UDPSrc {reply}")
+        _, listed = http(base, "/sdrangel/audio")
+        dests = [(o["kind"], o["destination"]) for o in listed["outputs"]]
+        check(dests == [("udp", udp_to), ("rtp", rtp_to)], f"net: /sdrangel/audio lists {dests}")
+        reset_counts()
+        wall = run_to_idle(base, "net")
+        k1 = flat_decimate.launches
+        _, device = http(base, "/sdrangel/deviceset/0/device/report")
+        code, wav_bytes = http(base, "/sdrangel/deviceset/0/channel/0/audio")
+        check(code == 200, f"net: audio {wav_bytes}")
+        code, data = http(base, "/sdrangel/deviceset/0/channel/1/data")
+        check(code == 200, f"net: UDPSrc data {data}")
+        time.sleep(0.3)  # the stopped set's last datagrams
+        first = {c: len(c.datagrams) for c in (udp_c, rtp_c, rtcp_c, data_c)}
+        # the same run again in this process (run_blocks counts the set's
+        # blocks): the first paid for its new shapes (cuFFT plans, first
+        # launches)
+        code, reply = http(base, "/sdrangel/deviceset/0/device/settings", "PATCH",
+                           {"run_blocks": 2 * NET_BLOCKS})
+        check(code == 200, f"net: run_blocks {reply}")
+        run_to_idle(base, "net, second run")
+        _, second = http(base, "/sdrangel/deviceset/0/device/report")
+    finally:
+        DeviceSet._publish_block = publish
+        session.shutdown()
+        srv.shutdown()
+        srv.server_close()
+        grams = {c: c.close() for c in (udp_c, rtp_c, rtcp_c, data_c)}
+    grams = {c: g[:first[c]] for c, g in grams.items()}
+    check(len(published) == 2 * NET_BLOCKS,
+          f"net: {len(published)} blocks published in two runs of {NET_BLOCKS}")
+    check(device["blocksProcessed"] == NET_BLOCKS and k1 == NET_BLOCKS,
+          f"net: K1 launched {k1} times for {device['blocksProcessed']} blocks")
+    with wave.open(io.BytesIO(wav_bytes)) as w:
+        pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+    got = np.concatenate([np.frombuffer(d, np.int16) for d in grams[udp_c]])
+    check(got.shape == pcm.shape and int(np.abs(got.astype(np.int32) - pcm).max()) <= 1,
+          f"net: UDP audio {got.shape} vs the drained audio {pcm.shape}")
+    snr = tone_snr(pcm[len(pcm) // 2:].astype(np.float64) / 32768.0, 1000.0, 48_000.0)
+    check(snr > 25.0, f"net: tone SNR {snr:.1f} dB")
+    pkts = [rtp.parse_packet(d) for d in grams[rtp_c]]
+    check(bool(pkts) and all(p["payload_type"] == rtp.PT_L16_MONO for p in pkts)
+          and all((b["seq"] - a["seq"]) & 0xFFFF == 1 for a, b in zip(pkts, pkts[1:])),
+          f"net: {len(pkts)} RTP packets not L16 mono in contiguous sequence")
+    rtp_pcm = np.concatenate([np.frombuffer(p["payload"], ">i2") for p in pkts]).astype(np.int16)
+    check(len(rtp_pcm) == len(pcm) // 480 * 480 and np.array_equal(rtp_pcm, got[:len(rtp_pcm)]),
+          f"net: RTP samples {len(rtp_pcm)} vs the UDP stream's {len(got)}")
+    reports = [r for d in grams[rtcp_c] for r in rtp.parse_rtcp(d)]
+    check(any(r["type"] == "SR" and r["ssrc"] == pkts[0]["ssrc"] for r in reports),
+          f"net: no RTCP sender report among {[r['type'] for r in reports]}")
+    iq = np.concatenate([np.frombuffer(d, np.int16) for d in grams[data_c]]).reshape(-1, 2)
+    # /data holds the last block's last 2048 samples to 5 places; iq16
+    # truncates as this encoding does
+    tail = np.stack([data["data"]["iq_real"], data["data"]["iq_imag"]], -1)
+    want = np.clip(tail * 32768.0, -32768, 32767).astype(np.int16)
+    lsb = int(np.abs(iq[-len(tail):].astype(np.int32) - want).max())
+    check(len(iq) % NET_BLOCKS == 0 and lsb <= 1,
+          f"net: UDPSrc datagrams {len(iq)} samples, {lsb} LSB from /data")
+    # every datagram of the first run: the iq16 of each block published, in
+    # order, the last datagram the remainder flushed when the run stopped
+    want_bytes = udp.encode_payload(np.concatenate(published[:NET_BLOCKS]), "iq16")
+    check(b"".join(grams[data_c]) == want_bytes,
+          f"net: UDPSrc's {len(iq)} I/Q pairs sent are not the {len(want_bytes) // 4} of the "
+          f"{NET_BLOCKS} blocks published")
+    n_grams = sum(len(g) for c, g in grams.items() if c is not rtcp_c)
+    print(f"phase 12b net: a cuda Session over HTTP playing the product capture (/64, "
+          f"{NET_BLOCKS} blocks), NFM +20 kHz with audioUdp and audioRtp and UDPSrc iq16 at "
+          f"+20 kHz; K1 launches {k1}; {len(grams[udp_c])} UDP mono16 datagrams ({len(got)} "
+          f"samples, within 1 LSB of the drained audio, tone SNR {snr:.2f} dB), {len(pkts)} RTP "
+          f"L16 packets (seq contiguous, samples equal to the UDP stream's), {len(reports)} RTCP "
+          f"reports ({sorted({r['type'] for r in reports})}), {len(grams[data_c])} UDPSrc "
+          f"datagrams ({len(iq)} I/Q pairs, the iq16 of the {NET_BLOCKS} published blocks byte "
+          f"for byte, the last {len(tail)} within {lsb} LSB of /data); "
+          f"{n_grams / wall:.0f} datagrams/s over the {wall:.3f} s run; "
+          f"{len(pcm) // NET_BLOCKS} audio samples a block; device report "
+          f"{device['elapsedSeconds'] / NET_BLOCKS * 1e3:.3f} ms/block, real-time factor "
+          f"{device['realtimeFactor']:.2f}; the second run in this process "
+          f"{second['elapsedSeconds'] / NET_BLOCKS * 1e3:.3f} ms/block, real-time factor "
+          f"{second['realtimeFactor']:.2f} [{tag}]", flush=True)
+    return k1
+
+
+def phase_tx_af(dev: torch.device, tag: str) -> int:
+    """12c: a Tx set on the card whose AF arrives as mono16 datagrams at
+    48 kHz pace; its capture decoded by RxPipeline on the card."""
+    probe = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    stop = threading.Event()
+    sent = [0]
+
+    def sender() -> None:
+        sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        t0 = time.perf_counter()
+        while not stop.is_set():
+            k = sent[0]
+            pcm = 0.7 * np.sin(2 * np.pi * 1000.0 * (k + np.arange(480)) / 48_000.0)
+            sock.sendto((pcm * 32767).astype(np.int16).tobytes(), ("127.0.0.1", port))
+            sent[0] += 480
+            time.sleep(max(0.0, t0 + sent[0] / 48_000.0 - time.perf_counter()))
+        sock.close()
+
+    session = Session(device=DEVICE)
+    srv, base = serve(session)
+    feeder = threading.Thread(target=sender, daemon=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "afudp.sdriq")
+        try:
+            code, reply = http(base, "/sdrangel/devicesets", "POST", {"direction": "tx"})
+            check(code == 201, f"tx af: add Tx set {reply}")
+            code, reply = http(base, "/sdrangel/deviceset/0/device/settings", "PATCH", {
+                "file_path": path, "sample_rate": TX_RATE, "log2_interp": 6})
+            check(code == 200, f"tx af: sink settings {reply}")
+            code, reply = http(base, "/sdrangel/deviceset/0/channel", "POST", {
+                "channelType": NFM_MOD, "inputFrequencyOffset": 20_000.0,
+                "afUdp": f"127.0.0.1:{port}"})
+            check(code == 201, f"tx af: add modulator {reply}")
+            t0 = time.perf_counter()
+            code, reply = http(base, "/sdrangel/deviceset/0/device/run", "POST")
+            check(code == 200, f"tx af: run {reply}")
+            feeder.start()
+            ds = session.device_sets[0]
+            while ds.blocks_processed < TX_AF_BLOCKS:
+                check(time.perf_counter() - t0 < 120 and not ds.error,
+                      f"tx af: {ds.blocks_processed} blocks, error {ds.error!r}")
+                time.sleep(0.01)
+            code, _ = http(base, "/sdrangel/deviceset/0/device/run", "DELETE")
+            wall = time.perf_counter() - t0
+            _, entry = http(base, "/sdrangel/deviceset/0")
+            check(code == 200 and entry["state"] == "idle" and not entry["error"],
+                  f"tx af: {entry['state']} {entry['error']!r}")
+        finally:
+            stop.set()
+            session.shutdown()
+            srv.shutdown()
+            srv.server_close()
+        feeder.join()
+        info, mm = sdriq.open_mmap(path)
+        pipe = RxPipeline(DeviceConfig(TX_RATE, log2_decim=6),
+                          [ChannelSpec(NFM, 20_000.0, {"squelch_db": -60.0})], dev)
+        check(pipe.device_block == TX_RX_BLOCK and info.n_samples >= 3 * TX_RX_BLOCK,
+              f"tx af: Rx block {pipe.device_block}, capture {info.n_samples}")
+        reset_counts()
+        audio = np.concatenate([o["channels"][0]["audio"] for _, o in pipe.run(
+            lambda b, n: sdriq.read_block(mm, b * n, n), 3)])
+        del mm
+    k1 = flat_decimate.launches
+    check(k1 == 3, f"tx af: K1 launched {k1} times for 3 Rx blocks")
+    snr = tone_snr(audio[len(audio) // 3:].astype(np.float64), 1000.0, 48_000.0)
+    check(snr > 25.0, f"tx af: the afUdp tone decodes at {snr:.1f} dB")
+    print(f"phase 12c tx af: a Tx set on the card (NFM +20 kHz, 9.6 MS/s x64, filesink) with "
+          f"afUdp fed {sent[0]} mono16 samples at 48 kHz pace; {ds.blocks_processed} blocks in "
+          f"{wall:.3f} s (real-time factor {ds.blocks_processed * TX_BLOCK / TX_RATE / wall:.2f}, "
+          f"paced by the sender); the capture through RxPipeline /64 on the card: K1 launches "
+          f"{k1} for 3 blocks, tone SNR {snr:.2f} dB [{tag}]", flush=True)
+    return k1
+
+
+def phase_refpreset(tag: str) -> int:
+    """12d: the reference's Base64-TLV preset in and out over HTTP, its set
+    run on the card."""
+    golden = refpreset.parse_preset(open(REFPRESET).read())
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "refpreset.b64"), "w") as f:
+            f.write(open(REFPRESET).read())
+        session = Session(device=DEVICE, preset_dir=tmp)
+        srv, base = serve(session)
+        try:
+            code, reply = http(base, "/sdrangel/preset/file", "PUT", {"filePath": "refpreset.b64"})
+            check(code == 200 and reply["imported"] == "TestGroup/Imported reference preset",
+                  f"refpreset: import {reply}")
+            code, reply = http(base, "/sdrangel/preset/load", "POST", {
+                "groupName": "TestGroup", "name": "Imported reference preset"})
+            check(code == 200, f"refpreset: load {reply}")
+            _, summary = http(base, "/sdrangel")
+            sets = summary["devicesetlist"]["deviceSets"]
+            check(len(sets) == 1, f"refpreset: {len(sets)} device sets")
+            chans = [(c["uri"], c["inputFrequencyOffset"]) for c in sets[0]["channels"]]
+            check([u for u, _ in chans] == [u for u, _ in REFPRESET_CHANNELS]
+                  and all(o is None or o == got for (_, o), (_, got)
+                          in zip(REFPRESET_CHANNELS, chans)), f"refpreset: channels {chans}")
+            src = sets[0]["source"]
+            check((src["log2_decim"], src["fc_pos"], src["dc_correction"], src["sample_rate"],
+                   src["center_frequency"]) == (5, "cen", True, 1_024_000.0, 145_500_000.0),
+                  f"refpreset: front end {src}")
+            code, reply = http(base, "/sdrangel/deviceset/0/device/settings", "PATCH",
+                               {"run_blocks": REFPRESET_BLOCKS})
+            check(code == 200, f"refpreset: run_blocks {reply}")
+            reset_counts()
+            wall = run_to_idle(base, "refpreset")
+            k1 = flat_decimate.launches
+            _, device = http(base, "/sdrangel/deviceset/0/device/report")
+            ds = session.device_sets[0]
+            finite = all(bool(np.isfinite(ch.audio[-1]).all()) if ch.audio else
+                         all(np.isfinite(v).all() for v in ch.latest_data.values())
+                         for ch in ds.channels)
+            code, reply = http(base, "/sdrangel/preset", "POST", {"groupName": "g",
+                                                                 "name": "saved"})
+            check(code == 200, f"refpreset: save {reply}")
+            code, reply = http(base, "/sdrangel/preset/file", "POST", {
+                "groupName": "g", "name": "saved", "filePath": "out.b64",
+                "format": "reference"})
+            check(code == 200, f"refpreset: export {reply}")
+            blob = open(os.path.join(tmp, "out.b64")).read()
+        finally:
+            session.shutdown()
+            srv.shutdown()
+            srv.server_close()
+    check(k1 == REFPRESET_BLOCKS and device["blocksProcessed"] == REFPRESET_BLOCKS and finite,
+          f"refpreset: K1 launched {k1} times for {device['blocksProcessed']} blocks, finite "
+          f"{finite}")
+    back = refpreset.parse_preset(blob)
+    audio_kinds = [c for c in golden["channels"][:4]]
+    check(back["centerFrequency"] == golden["centerFrequency"]
+          and [(c["uri"], c["settings"]) for c in back["channels"]]
+          == [(c["uri"], c["settings"]) for c in audio_kinds],
+          f"refpreset: the exported blob reads back as {back['channels']}")
+    print(f"phase 12d refpreset: tests/goldens/refpreset.b64 imported over PUT "
+          f"/sdrangel/preset/file and loaded on a cuda Session: {len(chans)} channels "
+          f"({', '.join(u.rsplit('.', 1)[1] for u, _ in chans)}), front end 1.024 MS/s /32 "
+          f"cen with DC correction; {REFPRESET_BLOCKS} blocks on the card, POST run to idle "
+          f"{wall:.3f} s, device report {device['elapsedSeconds'] / REFPRESET_BLOCKS * 1e3:.3f} "
+          f"ms/block (real-time factor {device['realtimeFactor']:.2f}), K1 launches {k1}, every "
+          f"channel's output finite; exported as a reference blob of "
+          f"{len(blob)} Base64 characters whose four audio channels parse back to the "
+          f"golden's settings [{tag}]", flush=True)
+    return k1
+
+
+def phase_library(dev: torch.device, path: str, tag: str) -> dict:
+    """12e: decimate_flat_iq on K1, fftcorr, and the demod CLI through the
+    native .sdriq loader."""
+    rng = np.random.default_rng(1212)
+    out = {}
+    legs, _, _ = dec._device_legs(6, "cen", dev)
+    tail_len = dec.flat_tail_len(6)
+    for name, size in (("gear", GEAR_BLOCK), ("product", PRODUCT_BLOCK)):
+        x = torch.from_numpy(rng.uniform(-0.9, 0.9, (size, 2)).astype(np.float32)).to(dev)
+        state = dec.FlatIqState(torch.from_numpy(
+            rng.uniform(-0.9, 0.9, (tail_len, 2)).astype(np.float32)).to(dev))
+        reset_counts()
+        _, y = dec.decimate_flat_iq(state, x, 6)
+        launches = flat_decimate.launches
+        plain = flat_decimate_reference(x, legs, tail=state.tail)
+        torch.cuda.synchronize()
+        err = float((y - plain).abs().max())
+        check(launches == 1 and y.shape == (size >> 6, 2) and err <= ATOL,
+              f"flat_iq {name}: {launches} launches, {tuple(y.shape)}, err {err:.3e}")
+        _, yc = dec.decimate_flat(dec.FlatState(torch.view_as_complex(state.tail)),
+                                  torch.view_as_complex(x), 6)
+        same = torch.equal(torch.view_as_real(yc), y)
+        check(same, f"flat_iq {name}: differs from decimate_flat on the same samples")
+        t = {"ms": time_ms(lambda: dec.decimate_flat_iq(state, x, 6)),
+             "plain_ms": time_ms(lambda: flat_decimate_reference(x, legs, tail=state.tail)),
+             "library_ms": time_ms(conv1d_planes(torch.cat([state.tail, x]), legs)),
+             "max_abs_err": err}
+        t["bound_ms"], t["bound_by"] = decimator_bound(tail_len + size, size >> 6, 64,
+                                                       legs.shape[1], tensor_cores=False,
+                                                       in_bytes=8)
+        out[name] = t
+        print(f"phase 12e flat_iq {name} block {size} f32 /64: one K1 launch, max_abs_err "
+              f"{err:.3e} against its plain version, equal to decimate_flat on the same "
+              f"samples as complex64 ({same}); decimate_flat_iq {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, F.conv1d {t['library_ms']:.4f} ms per block (CUDA "
+              f"events); bound {t['bound_ms']:.4f} ms by {t['bound_by']}, "
+              f"{100 * t['bound_ms'] / t['ms']:.1f} % of it [{tag}]", flush=True)
+        if name == "gear":  # three parts streamed equal one block
+            third = (size // 3) & ~63
+            s, parts = state, []
+            for lo, hi in ((0, third), (third, 2 * third), (2 * third, size)):
+                s, yp = dec.decimate_flat_iq(s, x[lo:hi], 6)
+                parts.append(yp)
+            check(torch.equal(torch.cat(parts), y), "flat_iq: 3 streamed parts differ")
+    # fftcorr on the card against the CPU
+    a = (rng.standard_normal((2, 1 << 16)) + 1j * rng.standard_normal((2, 1 << 16))
+         ).astype(np.complex64)
+    b = np.roll(a, 17, axis=-1)
+    corr = {}
+    for d in ("cpu", DEVICE):
+        state = fftcorr.make_state(1024, (2,), d)
+        for _ in range(2):
+            state, c = fftcorr.correlate_block(state, torch.from_numpy(a).to(d),
+                                               torch.from_numpy(b).to(d), 1024)
+        corr[d] = c.cpu().numpy()
+    rel = float(np.abs(corr[DEVICE] - corr["cpu"]).max() / np.abs(corr["cpu"]).max())
+    check(rel <= 2e-5, f"fftcorr: card vs CPU {rel:.3e} relative")
+    # demod --in on the capture: the native loader, then the memmap branch
+    check(native.available(), "the native .sdriq loader did not build")
+    nf = native.NativeSdriq(path)
+    info, mm = sdriq.open_mmap(path)
+    block, n_read = PRODUCT_BLOCK, info.n_samples // PRODUCT_BLOCK
+    for k in range(n_read):
+        check(np.array_equal(nf.read_i16(k * block, block),
+                             sdriq.read_block(mm, k * block, block)), "native read differs")
+    t0 = time.perf_counter()
+    for k in range(n_read):
+        nf.read_i16(k * block, block)
+    read_ms = (time.perf_counter() - t0) / n_read * 1e3
+    t0 = time.perf_counter()
+    for k in range(n_read):
+        np.array(sdriq.read_block(mm, k * block, block))
+    mmap_ms = (time.perf_counter() - t0) / n_read * 1e3
+    nf.close()
+    del mm
+    wavs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for branch in ("native", "memmap"):
+            wav_path = os.path.join(tmp, f"{branch}.wav")
+            argv = ["demod", "--device", DEVICE, "--in", path, "--log2-decim", "6",
+                    "--channel", "nfm:20000", "--squelch", "-60", "--out", wav_path]
+            real = native.available
+            if branch == "memmap":
+                native.available = lambda: False
+            reset_counts()
+            try:
+                t0 = time.perf_counter()
+                with contextlib.redirect_stderr(io.StringIO()):
+                    code = cli_main(argv)
+                cli_s = time.perf_counter() - t0
+            finally:
+                native.available = real
+            check(code == 0, f"demod --in ({branch}) exit {code}")
+            if branch == "native":
+                out["cli_launches"], native_s = flat_decimate.launches, cli_s
+            wavs[branch] = open(wav_path, "rb").read()
+    check(wavs["native"] == wavs["memmap"], "demod --in: native and memmap WAVs differ")
+    check(out["cli_launches"] == n_read,
+          f"demod --in: K1 launched {out['cli_launches']} times")
+    print(f"phase 12e library: fftcorr (2 x 65,536, fft 1024, 2 blocks) card vs CPU "
+          f"{rel:.3e} relative; demod --device cuda --in on the product capture: native loader "
+          f"built ({os.path.relpath(native.library_path(), REPO)}), {read_ms:.3f} ms per "
+          f"{block}-sample block read (memmap copy {mmap_ms:.3f} ms), K1 launches "
+          f"{out['cli_launches']}, the WAV ({len(wavs['native'])} bytes, {native_s:.2f} s) equals "
+          f"the memmap branch's bit for bit [{tag}]", flush=True)
+    return out
+
+
+def phase_slice(dev: torch.device, product_blocks: list[np.ndarray], tag: str) -> dict:
+    """Phase 12: RDS, network egress and ingest, reference presets and the
+    library on the card, K1 in front of each."""
+    t0 = time.perf_counter()
+    launches = {"rds": phase_rds(dev, tag)}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "product.sdriq")
+        writer = sdriq.SdriqWriter(path, sample_rate=int(PRODUCT_RATE))
+        for b in product_blocks[:NET_BLOCKS]:
+            writer.write(b)
+        writer.close()
+        launches["net"] = phase_net(path, tag)
+        launches["tx_af_loopback"] = phase_tx_af(dev, tag)
+        launches["refpreset"] = phase_refpreset(tag)
+        library = phase_library(dev, path, tag)
+    launches["demod_cli"] = library.pop("cli_launches")
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s [{tag}]", flush=True)
+    return {"launches": launches, "flat_iq": library}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -2651,6 +3278,7 @@ def main() -> int:
     phase_datv_server(datv["blocks"], tag)
     daemon_launches = phase_daemon(tag)
     phase_codec(tag)
+    slice12 = phase_slice(dev, product_blocks, tag)
 
     print(tag, flush=True)
     print(json.dumps({"kernels": [{
@@ -2671,6 +3299,8 @@ def main() -> int:
         "tx_loopback_launches": tx_loopback_launches,
         "data_launches": {"set_a": data["k1"], "atv_set_b": atv_launches,
                           "datv": datv["k1"], "daemon_rx": daemon_launches},
+        "slice12_launches": slice12["launches"],
+        "flat_iq": slice12["flat_iq"],
     }, {
         "name": "flat_decimate_tc",
         "route": "cuda",

@@ -112,13 +112,22 @@ def cmd_demod(args) -> int:
         return st
 
     if args.infile:
+        from .io import native
+
         info, mm = sdriq.open_mmap(args.infile)
         rate = float(info.sample_rate)
         total = info.n_samples
         input_format = "i16" if info.sample_size == 16 else "i24"
+        # a 16-bit capture through the C++ loader when it builds (a 24-bit
+        # one keeps its 24 bits through the memmap)
+        if input_format == "i16" and native.available():
+            nf = native.NativeSdriq(args.infile)
 
-        def source(b, count):
-            return sdriq.read_block(mm, b * count, count)
+            def source(b, count):
+                return nf.read_i16(b * count, count)
+        else:
+            def source(b, count):
+                return sdriq.read_block(mm, b * count, count)
     else:
         rate = args.rate
         input_format = "i16"

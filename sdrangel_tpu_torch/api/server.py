@@ -28,9 +28,8 @@ modulators: POST /sdrangel/devicesets {"direction": "tx"}, or
 its sink's.
 
 Errors: a malformed request or setting is a 400, an unknown index or key a
-404, and a part not ported yet (the sharded source on several GPUs, UDP/RTP
-egress and AF ingest, the reference-TLV preset format: ROADMAP.md queue 1,
-items 9, 12 and 13) a 501 whose message names its ROADMAP item. An unknown channel kind is a 404, the
+404, and a part not ported yet (the sharded source on several GPUs:
+ROADMAP.md queue 1, item 9) a 501 whose message names its ROADMAP item. An unknown channel kind is a 404, the
 Tx kind sdrangel.channeltx.modatv included, as the JAX server answers.
 """
 
@@ -368,11 +367,13 @@ class ApiHandler(BaseHTTPRequestHandler):
                 )
             if p == "/sdrangel/audio":
                 # instanceAudioGet role: the audio egress (no sound card on
-                # a headless host: the "devices" are the channels' WAV files)
+                # a headless host: the "devices" are the channels' WAV files
+                # and their UDP and RTP destinations)
                 sinks = []
                 for ds in s.device_sets:
                     for j, ch in enumerate(ds.channels):
-                        for key, kind in (("audioFile", "wav"),):
+                        for key, kind in (("audioFile", "wav"), ("audioUdp", "udp"),
+                                          ("audioRtp", "rtp")):
                             if ch.settings.get(key):
                                 sinks.append({"deviceSet": ds.index, "channel": j,
                                               "kind": kind,

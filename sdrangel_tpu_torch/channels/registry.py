@@ -3,8 +3,9 @@ channel kinds keyed by the reference's URIs. The port registers the NFM,
 AM, SSB, WFM and broadcast FM receivers and the data channels (channel
 analyzer, LoRa, DSD, ATV, DATV and UDPSrc) in REGISTRY, and the NFM, AM, SSB
 and WFM modulators of the Tx device sets in TX_KINDS (runtime/tx.py holds
-their modulate functions). The JAX session's UDP/RTP keys wait (ROADMAP.md,
-queue 1): naming one raises NotImplementedError with its queue item.
+their modulate functions). A kind or a session key the port does not carry
+yet would stand in UNPORTED_KINDS or UNPORTED_KEYS with its ROADMAP item;
+both are empty now.
 
 The session and the REST server read the settable fields from here: each
 kind's schema is derived from its config dataclass, so it cannot drift from
@@ -78,21 +79,23 @@ def register_config(uri: str, config_cls: type) -> None:
 #: config fields the pipeline binds (not settable over the API)
 _PIPELINE_FIELDS = {"channel_rate", "input_offset", "block_in", "block_af"}
 #: per-channel keys the session handles outside the demod and mod configs:
-#: the offset goes to the channel plan, audioFile to the WAV egress,
-#: datvContinuous to the DATV host decode, and the Tx AF source keys
-#: (toneFrequency, afFile, cwText, cwWpm) to the Tx worker's AF source
-SESSION_KEYS = {"inputFrequencyOffset", "audioFile", "toneFrequency", "afFile", "cwText",
-                "cwWpm", "datvContinuous"}
+#: the offset goes to the channel plan; audioFile, audioUdp and audioRtp to
+#: the audio egress (WAV, UDP, RTP); udpAddress, udpPort and udpFormat to
+#: UDPSrc's data egress (io/udp.py FORMATS); datvContinuous to the DATV host
+#: decode; and the Tx AF source keys (toneFrequency, afUdp, afFile, cwText,
+#: cwWpm) to the Tx worker's AF source
+SESSION_KEYS = {"inputFrequencyOffset", "audioFile", "audioUdp", "audioRtp", "toneFrequency",
+                "afUdp", "afFile", "cwText", "cwWpm", "datvContinuous", "udpAddress",
+                "udpPort", "udpFormat"}
 
-ITEM_UDP_RTP = ("ROADMAP.md queue 1, item 12 (UDP/RTP egress and ingest: io/udp.py, "
-                "io/rtp.py)")
 #: the JAX package's channel kinds that the port does not carry yet
 UNPORTED_KINDS: dict[str, str] = {}
 #: the JAX session's per-channel keys that the port does not carry yet
-UNPORTED_KEYS = {
-    "audioUdp": ITEM_UDP_RTP, "audioRtp": ITEM_UDP_RTP, "udpAddress": ITEM_UDP_RTP,
-    "udpPort": ITEM_UDP_RTP, "udpFormat": ITEM_UDP_RTP, "afUdp": ITEM_UDP_RTP,
-}
+UNPORTED_KEYS: dict[str, str] = {}
+
+
+def get_demod(uri: str) -> ChannelKind:
+    return REGISTRY[uri]
 
 
 def settings_schema(uri: str) -> dict[str, dict]:

@@ -299,3 +299,54 @@ def decimate_flat_raw(
     raw = raw.contiguous()  # K1 reads the block in place
     y = flat_decimate(raw, legs_re, tail=state.tail)
     return _next_tail(state, raw), torch.view_as_complex(y)
+
+
+class FlatIqState(NamedTuple):
+    """tail: (..., 2^k·(t_leg−1), 2) float32, the carried raw I/Q."""
+
+    tail: torch.Tensor
+
+
+def init_flat_iq_state(
+    log2_decim: int, device: torch.device, batch_shape=(), order: int = DECIMATORS_ORDER,
+) -> FlatIqState:
+    return FlatIqState(torch.zeros((*batch_shape, flat_tail_len(log2_decim, order), 2),
+                                   dtype=torch.float32, device=device))
+
+
+def flat_iq_state_from_numpy(tail: np.ndarray, device: torch.device) -> FlatIqState:
+    """The JAX FlatIqState's tail (fetched as numpy) as this module's."""
+    return FlatIqState(torch.from_numpy(np.array(tail, np.float32)).to(device))
+
+
+def flat_iq_state_to_numpy(state: FlatIqState) -> np.ndarray:
+    """The tail in the JAX FlatIqState's layout: (..., n, 2) float32."""
+    return state.tail.cpu().numpy()
+
+
+def decimate_flat_iq(
+    state: FlatIqState, x_iq: torch.Tensor, log2_decim: int, order: int = DECIMATORS_ORDER,
+) -> tuple[FlatIqState, torch.Tensor]:
+    """Layout-native flat cen ÷2^k: x_iq (..., T, 2) float32, interleaved I/Q
+    in storage order, T a multiple of 2^k. Each stream is one call of K1's
+    f32 real-leg form on the block and its carried tail as two pointers, so
+    nothing is transposed or copied ahead of the kernel (the JAX function's
+    one NWC conv). Returns (state', y_iq (..., T/2^k, 2) float32)."""
+    if log2_decim == 0:
+        return state, x_iq
+    if x_iq.dtype != torch.float32 or x_iq.shape[-1] != 2:
+        raise TypeError(f"x_iq must be (..., T, 2) float32, got {x_iq.dtype} "
+                        f"{tuple(x_iq.shape)}")
+    legs_re, _, _ = _device_legs(log2_decim, "cen", x_iq.device, order)
+    x_iq = x_iq.contiguous()  # K1 reads the block in place
+    n, t = state.tail.shape[-2], x_iq.shape[-2]
+    if t >= n:
+        tail = x_iq[..., t - n:, :].clone()
+    else:
+        tail = torch.cat([state.tail[..., t:, :], x_iq], dim=-2)
+    if x_iq.dim() == 2:
+        return FlatIqState(tail), flat_decimate(x_iq, legs_re, tail=state.tail)
+    blocks = x_iq.reshape(-1, t, 2)
+    tails = state.tail.reshape(-1, n, 2)
+    y = torch.stack([flat_decimate(b, legs_re, tail=tl) for b, tl in zip(blocks, tails)])
+    return FlatIqState(tail), y.reshape(*x_iq.shape[:-2], t // (1 << log2_decim), 2)

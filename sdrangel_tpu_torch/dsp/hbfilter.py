@@ -99,3 +99,31 @@ def hb_taps(order: int) -> np.ndarray:
         h[centre - off] = c[k]
         h[centre + off] = c[k]
     return h.astype(np.float32)
+
+
+def design_halfband(order: int, beta: float = 9.0) -> np.ndarray:
+    """Independent Kaiser windowed-sinc half-band design (no scipy): the
+    full (order-1)-tap response with exact zeros at even offsets from the
+    centre, 0.5 at the centre and DC gain 1.0."""
+    length = order - 1
+    centre = length // 2
+    n = np.arange(length, dtype=np.float64) - centre
+    # ideal half-band lowpass, cutoff fs/4: h[n] = 0.5·sinc(n/2)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        h = 0.5 * np.sinc(n / 2.0)
+    h[centre] = 0.5
+    h = h * np.kaiser(length, beta)
+    # re-impose the exact half-band structure and unity DC gain
+    h[(np.arange(length) - centre) % 2 == 0] = 0.0
+    h[centre] = 0.5
+    h = h / h.sum()
+    return h.astype(np.float32)
+
+
+def hb_poly_even_odd(order: int) -> tuple[np.ndarray, np.ndarray]:
+    """Polyphase split of the half-band taps for stride-2 filtering: (h_even,
+    h_odd), the centre tap's branch (a delay) and the dense branch of the
+    c-coefficients over odd samples (IntHalfbandFilterEO::doFIR,
+    inthalfbandfiltereo.h:792-870)."""
+    h = hb_taps(order)
+    return h[::2].copy(), h[1::2].copy()

@@ -7,8 +7,8 @@ acquisition runs in a worker thread that streams file or synthetic blocks
 through `RxPipeline` on the set's torch device (the DSPDeviceSourceEngine
 thread) and publishes per-channel reports and audio. A TxDeviceSet is one
 sink and its modulator channels; its worker thread pulls AF blocks (tone,
-looped WAV, CW keyer) through `TxPipeline` (the DSPDeviceSinkEngine thread)
-and records the device-rate stream to a .sdriq.
+looped WAV, CW keyer, UDP datagrams) through `TxPipeline` (the
+DSPDeviceSinkEngine thread) and records the device-rate stream to a .sdriq.
 
 Live reconfiguration (webapiadaptersrv.cpp:1637 → nfmdemod.cpp
 applySettings; downchannelizer.cpp:111-189): dynamic knobs (an in-passband
@@ -45,14 +45,22 @@ source receives and decodes the superframes, so the socket is drained while
 the worker waits on the card (the JAX worker reads the socket between
 blocks), and the DATV decode runs outside the set's lock.
 
+A channel's audio goes to a WAV file (audioFile), raw UDP mono16
+datagrams (audioUdp, io/udp.py) and RTP L16 packets with RTCP (audioRtp,
+io/rtp.py), the AudioNetSink role; a UDPSrc channel with udpAddress and
+udpPort streams its formatted output as datagrams (udpFormat); a Tx channel
+with afUdp takes its audio from mono16 datagrams. Presets are exported and
+imported as JSON or as the reference's Base64-TLV blob (runtime/refpreset.py).
+
 The Rx and Tx sessions on the one-pipeline worker are what the port
-carries. The sharded worker, UDP/RTP egress and AF ingest and the
-reference-TLV preset format raise NotImplementedError naming their ROADMAP
+carries. The sharded worker raises NotImplementedError naming its ROADMAP
 item.
 """
 
 from __future__ import annotations
 
+import base64
+import contextlib
 import dataclasses
 import json
 import logging
@@ -73,14 +81,14 @@ from ..channels import demod_datv, dsdsync, registry, tsdemux
 from ..channels.registry import REGISTRY
 from ..dsp import spectrum as dsp_spectrum
 from ..dsp.types import INPUT_FORMATS
-from ..io import daemon, sdriq, testsource
+from ..io import daemon, rtp, sdriq, testsource, udp
+from . import refpreset
 from .engine import ChannelSpec, DeviceConfig, RxPipeline, fetch, resolve_device, unpack_outs
 from .fifo import BlockFifo
 from .tx import BLOCK_AF, TxChannelSpec, TxDeviceConfig, TxPipeline
 
 ITEM_SHARDED = ("ROADMAP.md queue 1, item 9 (parallel/ on several GPUs: the sharded "
                 "session worker with K1-TC)")
-ITEM_REFPRESET = "ROADMAP.md queue 1, item 13 (reference presets: runtime/refpreset.py)"
 
 #: the JAX session's device settings of parts not ported yet: name ->
 #: (the JAX default, which changes nothing and passes, ROADMAP item)
@@ -391,11 +399,92 @@ def check_sink(settings: dict) -> dict:
     return settings
 
 
+@dataclasses.dataclass
+class _Egress:
+    """A worker's open sinks, keyed by channel identity, each entry (the
+    settings it was opened for, [sinks]): the WAV writers (audioFile), the
+    network audio sinks (audioUdp, audioRtp; audionetsink.h:29-63) and
+    UDPSrc's data egress (udpAddress, udpPort, udpFormat)."""
+
+    wav: dict = dataclasses.field(default_factory=dict)
+    net: dict = dataclasses.field(default_factory=dict)
+    data: dict = dataclasses.field(default_factory=dict)
+
+    def close(self) -> None:
+        for table in (self.wav, self.net, self.data):
+            for _, sinks in table.values():
+                _close_all(sinks)
+            table.clear()
+
+
+def _close_all(sinks: list) -> None:
+    """Close each sink, whatever the others do: a UDP sink flushes on
+    close, and a flush to an address that fails (the write already recorded
+    the error) must not leave the other channels' files and sockets open,
+    as the JAX session guards each close."""
+    for sink in sinks:
+        with contextlib.suppress(Exception):
+            sink.close()
+
+
+def _reconcile(table: dict, live: dict, key_of: Callable, open_sinks: Callable) -> None:
+    """Close the sinks of a channel removed or whose key changed, and open
+    them for a channel with a key and none open (keyed by channel identity,
+    so an unrelated settings change never truncates a live file)."""
+    for cid in list(table):
+        ch = live.get(cid)
+        if ch is None or key_of(ch) != table[cid][0]:
+            _close_all(table.pop(cid)[1])
+    for cid, ch in live.items():
+        key = key_of(ch)
+        if key is not None and cid not in table:
+            table[cid] = (key, open_sinks(key))
+
+
+def _open_wav(path: str) -> list:
+    w = wave.open(path, "wb")
+    w.setnchannels(1)
+    w.setsampwidth(2)
+    w.setframerate(48000)
+    return [w]
+
+
+def _net_key(ch: ChannelState) -> tuple | None:
+    key = (ch.settings.get("audioUdp"), ch.settings.get("audioRtp"))
+    return key if any(key) else None
+
+
+def _open_net(key: tuple) -> list:
+    """The UDP mono16 sink and the RTP L16 sender of "host:port" keys."""
+    sinks = []
+    if key[0]:
+        host, port = key[0].rsplit(":", 1)
+        sinks.append(udp.UdpSink(host, int(port), "mono16"))
+    if key[1]:
+        host, port = key[1].rsplit(":", 1)
+        sinks.append(rtp.RtpAudioSender(host, int(port)))
+    return sinks
+
+
+def _udpsrc_key(ch: ChannelState) -> tuple | None:
+    """(address, port, wire format) of a UDPSrc channel's data egress: iq16
+    for the iq format, mono16 for the others, unless udpFormat says."""
+    if ch.uri != "sdrangel.channel.udpsrc":
+        return None
+    addr, port = ch.settings.get("udpAddress"), ch.settings.get("udpPort")
+    if not addr or not port:
+        return None
+    fmt = ch.settings.get("udpFormat",
+                          "iq16" if ch.settings.get("fmt", "iq") == "iq" else "mono16")
+    return (str(addr), int(port), str(fmt))
+
+
 class DeviceSet:
     """One source and its channels (sdrsrv/device/deviceset.h:31-53), run on
     one torch device — the card unless the caller asks for the CPU. A
-    channel setting `audioFile` streams its audio to a WAV file while the
-    set runs."""
+    channel's `audioFile`, `audioUdp` and `audioRtp` stream its audio to a
+    WAV file, UDP and RTP while the set runs; a UDPSrc channel's
+    `udpAddress`/`udpPort` stream its data."""
 
     direction = "rx"
 
@@ -593,25 +682,14 @@ class DeviceSet:
 
         return open_reader
 
-    def _sync_sinks(self, wav_writers: dict) -> None:
-        """Reconcile the WAV egress with the channels' `audioFile` settings
-        (caller holds the lock; keyed by channel identity, so an unrelated
-        settings change never truncates a live file)."""
+    def _sync_sinks(self, egress: _Egress) -> None:
+        """Reconcile the egress with the channels' settings (caller holds
+        the lock): audioFile, audioUdp/audioRtp, and UDPSrc's udpAddress/
+        udpPort/udpFormat."""
         live = {id(ch): ch for ch in self.channels}
-        for cid in list(wav_writers):
-            path, w = wav_writers[cid]
-            ch = live.get(cid)
-            if ch is None or ch.settings.get("audioFile") != path:
-                w.close()
-                del wav_writers[cid]
-        for ch in self.channels:
-            path = ch.settings.get("audioFile")
-            if path and id(ch) not in wav_writers:
-                w = wave.open(path, "wb")
-                w.setnchannels(1)
-                w.setsampwidth(2)
-                w.setframerate(48000)
-                wav_writers[id(ch)] = (path, w)
+        _reconcile(egress.wav, live, lambda ch: ch.settings.get("audioFile") or None, _open_wav)
+        _reconcile(egress.net, live, _net_key, _open_net)
+        _reconcile(egress.data, live, _udpsrc_key, lambda key: [udp.UdpSink(*key)])
 
     def _live_dyn(self, pipe: RxPipeline) -> tuple[list, bool]:
         """Per-channel overrides from the live settings (caller holds the
@@ -644,7 +722,7 @@ class DeviceSet:
         (dspdevicesourceengine.cpp:325-408). The outer loop is a settings
         generation: a static change ends the block loop, the pending blocks
         are published, and the pipeline is rebuilt at the same position."""
-        wav_writers: dict = {}
+        egress = _Egress()
         recorder = None  # ((path, rate, centre), SdriqWriter)
         pos = 0  # device-rate sample position, kept across rebuilds
         t_start = None  # the run's first queued block (host clock)
@@ -655,7 +733,7 @@ class DeviceSet:
                     gen = self._gen
                     pipe, open_reader = self._build_pipeline()
                     chans = list(self.channels)  # the pipeline's channels, in its order
-                    self._sync_sinks(wav_writers)
+                    self._sync_sinks(egress)
                     rec_cfg = (self.source.record_file, int(self.source.sample_rate),
                                int(self.source.center_frequency))
                     pub_n = max(1, int(self.source.publish_every))
@@ -681,7 +759,7 @@ class DeviceSet:
                     for k in range(len(blocks)):
                         self._publish_block(
                             unpack_outs(flat[k * size:(k + 1) * size], pipe.out_layout),
-                            chans, wav_writers)
+                            chans, egress)
                     signal_s += len(blocks) * block_seconds
                     self.elapsed_s = time.perf_counter() - t_start
                     self.realtime_factor = signal_s / max(self.elapsed_s, 1e-9)
@@ -720,18 +798,18 @@ class DeviceSet:
         except Exception as e:  # StError (dspdevicesourceengine.h:28)
             self.error = f"{type(e).__name__}: {e}"
         finally:
-            for _, w in wav_writers.values():
-                w.close()
+            egress.close()
             if recorder is not None:
                 recorder[1].close()
             if self._daemon is not None:
                 self._daemon.close()
                 self._daemon = None
 
-    def _publish_block(self, outs: dict, chans: list[ChannelState], wav_writers: dict) -> None:
+    def _publish_block(self, outs: dict, chans: list[ChannelState], egress: _Egress) -> None:
         """One block's host outputs into the reports, the audio buffers and
-        the WAV egress. `chans` are the channels the block was computed for;
-        a channel removed since then gets nothing (its audio is dropped),
+        the egress (WAV, UDP, RTP; UDPSrc's datagrams). `chans` are the
+        channels the block was computed for; a channel removed since then
+        gets nothing (its audio is dropped),
         every other channel gets its part whatever changed meanwhile. A
         DATV pass runs after the lock is released: it takes seconds, and the
         reports stay readable meanwhile."""
@@ -752,8 +830,6 @@ class DeviceSet:
                     continue
                 ch.channel_power_db = float(10.0 * np.log10(max(float(out["power"]), 1e-12)))
                 if "data" in out:
-                    # the squelch meter of a data kind stays as it is: JAX's
-                    # session sets it only in the UDP egress (item 12)
                     ch.latest_data = out["data"]
                     ch.data_blocks += 1
                     if ch.uri == "sdrangel.channel.dsddemod":
@@ -765,6 +841,16 @@ class DeviceSet:
                                             bool(ch.settings.get("datvContinuous", False)))
                         if todo is not None:
                             decodes.append((ch, todo, ch.settings.get("fec_rate", "1/2")))
+                    entry = egress.data.get(id(ch))
+                    if entry is not None:
+                        # UDPSrc's datagrams (udpsrc.cpp feed -> UDPSink); a
+                        # data kind's squelch meter is set only here
+                        d = ch.latest_data
+                        payload = ((d["iq_real"] + 1j * d["iq_imag"]).astype(np.complex64)
+                                   if entry[0][2] in ("iq16", "iq24") else d["scalar"])
+                        entry[1][0].write(payload)
+                        if "squelch" in d:
+                            ch.squelch = bool(d["squelch"])
                     continue
                 audio = out["audio"]
                 # the demod's own gate state where it has one (nfmdemod.h getters)
@@ -773,11 +859,12 @@ class DeviceSet:
                 ch.audio_samples += audio.shape[0]
                 ch.audio.append(audio)
                 del ch.audio[:-self.audio_keep_blocks]
-                entry = wav_writers.get(id(ch))
-                if entry is not None:
-                    mono = audio if audio.ndim == 1 else audio[:, 0]
-                    entry[1].writeframes(
+                mono = audio if audio.ndim == 1 else audio[:, 0]
+                for w in egress.wav.get(id(ch), (None, ()))[1]:
+                    w.writeframes(
                         np.clip(mono * 32768.0, -32768, 32767).astype(np.int16).tobytes())
+                for sink in egress.net.get(id(ch), (None, ()))[1]:
+                    sink.write(mono)
             self.blocks_processed += 1
         for ch, (soft_i, soft_q, rounds), fec_rate in decodes:
             ch.host_report = {"datv": DatvHostDecode.decode(soft_i, soft_q, rounds, fec_rate)}
@@ -899,30 +986,46 @@ class TxDeviceSet:
             self._thread = None
         self.running = False
 
-    def _af_sources(self) -> tuple[list[TxChannelSpec], Callable]:
-        """The pipeline's channel specs and af(b, c, count), each channel's
-        AF source: a looped WAV (afFile; its channels averaged, played at
-        48 kHz), else its tone (toneFrequency, default 1 kHz) keyed by the
-        CW keyer when cwText is set (the CWKeyer feeding Tx channels,
+    def _af_sources(self) -> tuple[list[TxChannelSpec], Callable, list]:
+        """The pipeline's channel specs, af(b, c, count), each channel's AF
+        source, and the UDP sources to close when the worker ends. A
+        channel's AF source is the mono16 datagrams of afUdp ("host:port",
+        the reference's channeltx/udpsink ingest; an underrun reads as
+        silence), else a looped WAV (afFile; its channels averaged, played
+        at 48 kHz), else its tone (toneFrequency, default 1 kHz) keyed by
+        the CW keyer when cwText is set (the CWKeyer feeding Tx channels,
         cwkeyer.h:141)."""
         from ..channels.cwkeyer import CWConfig, CWKeyer
 
-        specs, tones, wavs, keyers = [], [], {}, {}
-        for i, ch in enumerate(self.channels):
-            st = ch.settings
-            tones.append(float(st.get("toneFrequency", 1000.0)))
-            if st.get("afFile"):
-                with wave.open(st["afFile"], "rb") as w:
-                    pcm = np.frombuffer(w.readframes(w.getnframes()), dtype=np.int16)
-                    wavs[i] = (pcm.reshape(-1, w.getnchannels()).mean(axis=1) / 32768.0
-                               ).astype(np.float32)
-            if st.get("cwText"):
-                keyers[i] = CWKeyer(str(st["cwText"]), CWConfig(
-                    wpm=float(st.get("cwWpm", 15.0)), sample_rate=48000.0), loop=True)
-            specs.append(TxChannelSpec(ch.uri, ch.frequency_offset, {
-                k: v for k, v in st.items() if k not in registry.SESSION_KEYS}))
+        specs, tones, wavs, keyers, udps = [], [], {}, {}, {}
+        try:
+            for i, ch in enumerate(self.channels):
+                st = ch.settings
+                tones.append(float(st.get("toneFrequency", 1000.0)))
+                if st.get("afUdp"):
+                    host, port = st["afUdp"].rsplit(":", 1)
+                    udps[i] = udp.UdpSource(host, int(port), "mono16", timeout=2.0)
+                if st.get("afFile"):
+                    with wave.open(st["afFile"], "rb") as w:
+                        pcm = np.frombuffer(w.readframes(w.getnframes()), dtype=np.int16)
+                        wavs[i] = (pcm.reshape(-1, w.getnchannels()).mean(axis=1) / 32768.0
+                                   ).astype(np.float32)
+                if st.get("cwText"):
+                    keyers[i] = CWKeyer(str(st["cwText"]), CWConfig(
+                        wpm=float(st.get("cwWpm", 15.0)), sample_rate=48000.0), loop=True)
+                specs.append(TxChannelSpec(ch.uri, ch.frequency_offset, {
+                    k: v for k, v in st.items() if k not in registry.SESSION_KEYS}))
+        except BaseException:  # a bound socket would hold its port until collected
+            for src in udps.values():
+                src.close()
+            raise
 
         def af(b: int, c: int, count: int) -> np.ndarray:
+            if c in udps:
+                try:
+                    return udps[c].read(count).astype(np.float32)
+                except OSError:  # a timeout: the underrun is silence
+                    return np.zeros(count, np.float32)
             if c in wavs:
                 src = wavs[c]
                 return src[(b * count + np.arange(count)) % len(src)]
@@ -930,17 +1033,22 @@ class TxDeviceSet:
             tone = np.sin(2 * np.pi * tones[c] * tt).astype(np.float32)
             return tone * keyers[c].next_block(count) if c in keyers else tone
 
-        return specs, af
+        return specs, af, list(udps.values())
 
     def _work(self) -> None:
         try:
-            self._work_sink()
+            specs, af, udp_sources = self._af_sources()
+            try:
+                self._work_sink(specs, af)
+            finally:
+                for src in udp_sources:
+                    src.close()
         except Exception as e:  # StError
             self.error = f"{type(e).__name__}: {e}"
         finally:
             self.running = False
 
-    def _work_sink(self) -> None:
+    def _work_sink(self, specs: list[TxChannelSpec], af: Callable) -> None:
         """The engine thread: build the pipeline and the sink, then queue
         blocks until stopped, reading each back once the next is queued."""
         if not self.channels:
@@ -950,7 +1058,6 @@ class TxDeviceSet:
         if sink.kind == "filesink" and not sink.file_path:
             raise ValueError("the filesink needs file_path")
         chans = list(self.channels)  # the pipeline's channels, in its order
-        specs, af = self._af_sources()
         pipe = TxPipeline(TxDeviceConfig(sink.sample_rate, sink.log2_interp,
                                          sink.center_frequency), specs, BLOCK_AF, self.device)
         block_seconds = pipe.device_block / sink.sample_rate
@@ -1208,8 +1315,7 @@ class Session:
     def load_preset(self, group: str, name: str) -> None:
         """Replace the device sets with the preset's. The whole preset is
         checked first, so one that names a part not ported yet (a sharded
-        source, a UDP/RTP key) raises and leaves the running instance as it
-        was."""
+        source) raises and leaves the running instance as it was."""
         preset = migrate_preset(self.presets[f"{group}/{name}"])
         plan = []
         for entry in preset["deviceSets"]:
@@ -1273,11 +1379,16 @@ class Session:
         return resolved
 
     def export_preset_file(self, group: str, name: str, path: str, fmt: str = "json") -> None:
-        """Server-side preset export (instancePresetFilePost)."""
+        """Server-side preset export (instancePresetFilePost): fmt "json", or
+        "reference", the Base64-TLV blob the reference's own SimpleDeserializer
+        reads (refpreset.to_reference_preset; only the four audio demod kinds
+        survive the conversion)."""
         preset = self.presets[f"{group}/{name}"]
         if fmt == "reference":
-            raise NotImplementedError(
-                f"the reference's Base64-TLV preset format is not ported yet: {ITEM_REFPRESET}")
+            blob = refpreset.to_reference_preset(preset)
+            with open(self._preset_file_path(path), "w") as f:
+                f.write(base64.b64encode(blob).decode())
+            return
         if fmt != "json":
             raise ValueError(f"unknown preset export format {fmt!r}")
         with open(self._preset_file_path(path), "w") as f:
@@ -1285,15 +1396,15 @@ class Session:
 
     def import_preset_file(self, path: str) -> str:
         """Server-side preset import (instancePresetFilePut): one preset
-        object as `export_preset_file` writes it."""
+        object as `export_preset_file` writes it, or a reference Base64-TLV
+        preset blob (settings/preset.cpp's serialize format), mapped by
+        runtime/refpreset.py."""
         with open(self._preset_file_path(path)) as f:
             raw = f.read()
         try:
             preset = json.loads(raw)
         except json.JSONDecodeError:
-            raise NotImplementedError(
-                f"not a JSON preset; the reference's Base64-TLV preset format is not "
-                f"ported yet: {ITEM_REFPRESET}") from None
+            preset = refpreset.to_session_preset(refpreset.parse_preset(raw.strip()))
         if not isinstance(preset, dict) or "deviceSets" not in preset:
             raise ValueError("not a preset file (missing deviceSets)")
         key = f"{preset.get('group', 'default')}/{preset.get('name', 'imported')}"

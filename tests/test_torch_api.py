@@ -2,12 +2,14 @@
 on a CPU session: the Rx and Tx cases of tests/test_api.py and the cases of
 tests/test_live_settings.py, the route ↔ document checks of
 tests/test_openapi.py, the data channels' route and reports against the
-JAX server, and the 501 of every part not ported yet.
+JAX server, UDP/RTP audio egress, afUdp ingest and the reference presets
+against the JAX server's answers, and the 501 of every part not ported yet.
 
 Sources are the testsource at 192 kS/s (65,536-sample blocks, 16,384 audio
 samples each) or small captures; every run ends by `run_blocks` or a stop.
 """
 
+import contextlib
 import dataclasses
 import inspect
 import io
@@ -208,8 +210,9 @@ def test_channels_listing_and_schema(api):
     modnfm = by_uri["sdrangel.channeltx.modnfm"]["settings"]
     assert modnfm["af_filter"] == {"type": "str", "default": "nfm_ref"}
     assert "block_af" not in modnfm and "input_offset" not in modnfm
-    assert body["sessionKeys"] == ["afFile", "audioFile", "cwText", "cwWpm", "datvContinuous",
-                                   "inputFrequencyOffset", "toneFrequency"]
+    assert body["sessionKeys"] == ["afFile", "afUdp", "audioFile", "audioRtp", "audioUdp",
+                                   "cwText", "cwWpm", "datvContinuous", "inputFrequencyOffset",
+                                   "toneFrequency", "udpAddress", "udpFormat", "udpPort"]
     code, body = _req(base, "/sdrangel/devices")
     assert {d["kind"] for d in body["devices"]} == {"testsource", "filesource", "daemonsource"}
 
@@ -501,22 +504,8 @@ def test_api_bearer_token():
 # -- parts not ported yet: 501 with the ROADMAP item -------------------------------------
 
 _LEFT_OUT = {
-    "afUdp": ("/sdrangel/config", "PUT", {"deviceSets": [
-        {"direction": "tx", "source": {}, "channels": [
-            {"uri": "sdrangel.channeltx.modnfm", "inputFrequencyOffset": 0.0,
-             "settings": {"afUdp": "127.0.0.1:9999"}}]}]}, "item 12"),
     "sharded": ("/sdrangel/deviceset/0/device/settings", "PATCH", {"sharded": True}, "item 9"),
     "mesh": ("/sdrangel/deviceset/0/device/settings", "PATCH", {"mesh_time": 4}, "item 9"),
-    "audioUdp": ("/sdrangel/deviceset/0/channel", "POST",
-                 {"channelType": NFM, "audioUdp": "127.0.0.1:9999"}, "item 12"),
-    "audioRtp": ("/sdrangel/deviceset/0/channel/0/settings", "PATCH",
-                 {"audioRtp": "127.0.0.1:9999"}, "item 12"),
-    "udpPort": ("/sdrangel/deviceset/0/channel/0/settings", "PUT", {"udpPort": 9999},
-                "item 12"),
-    "reference_export": ("/sdrangel/preset/file", "POST",
-                         {"groupName": "g", "name": "p", "filePath": "p.b64",
-                          "format": "reference"}, "item 13"),
-    "tlv_import": ("/sdrangel/preset/file", "PUT", {"filePath": "ref.b64"}, "item 13"),
 }
 
 
@@ -524,7 +513,6 @@ _LEFT_OUT = {
 def test_left_out_parts_answer_501(api, tmp_path, case):
     base, session = api
     session.preset_dir = str(tmp_path)
-    (tmp_path / "ref.b64").write_text("AAAAAAE=")
     _req(base, "/sdrangel/devicesets", "POST")
     _req(base, "/sdrangel/deviceset/0/channel", "POST", {"channelType": NFM})
     _req(base, "/sdrangel/preset", "POST", {"groupName": "g", "name": "p"})
@@ -535,6 +523,194 @@ def test_left_out_parts_answer_501(api, tmp_path, case):
     assert len(session.device_sets) == 1 and len(session.device_sets[0].channels) == 1
 
 
+# -- UDP/RTP egress, afUdp ingest and the reference presets over HTTP ---------------------
+
+#: the requests that answered 501 while these parts were left out
+_FORMERLY_LEFT_OUT = {
+    "afUdp": ("/sdrangel/config", "PUT", {"deviceSets": [
+        {"direction": "tx", "source": {}, "channels": [
+            {"uri": "sdrangel.channeltx.modnfm", "inputFrequencyOffset": 0.0,
+             "settings": {"afUdp": "127.0.0.1:9999"}}]}]}),
+    "audioUdp": ("/sdrangel/deviceset/0/channel", "POST",
+                 {"channelType": NFM, "audioUdp": "127.0.0.1:9999"}),
+    "audioRtp": ("/sdrangel/deviceset/0/channel/0/settings", "PATCH",
+                 {"audioRtp": "127.0.0.1:9999"}),
+    "udpPort": ("/sdrangel/deviceset/0/channel/0/settings", "PUT", {"udpPort": 9999}),
+    "reference_export": ("/sdrangel/preset/file", "POST",
+                         {"groupName": "g", "name": "p", "filePath": "p.b64",
+                          "format": "reference"}),
+    "tlv_import": ("/sdrangel/preset/file", "PUT", {"filePath": "ref.b64"}),
+}
+
+
+def _formerly_left_out_outcome(base, session, preset_dir, case):
+    session.preset_dir = str(preset_dir)
+    (preset_dir / "ref.b64").write_text("AAAAAAE=")
+    _req(base, "/sdrangel/devicesets", "POST")
+    _req(base, "/sdrangel/deviceset/0/channel", "POST", {"channelType": NFM})
+    _req(base, "/sdrangel/preset", "POST", {"groupName": "g", "name": "p"})
+    path, method, body = _FORMERLY_LEFT_OUT[case]
+    code, _ = _req(base, path, method, body)
+    _, config = _req(base, "/sdrangel/config")
+    sets = [(d["direction"], d["channels"]) for d in config["deviceSets"]]
+    exported = preset_dir / "p.b64"
+    return code, sets, exported.read_text() if exported.exists() else None
+
+
+@pytest.mark.parametrize("case", sorted(_FORMERLY_LEFT_OUT))
+def test_udp_rtp_and_reference_preset_requests_answer_as_jax(api, tmp_path, case):
+    """Each request that answered 501 while UDP/RTP and the reference presets
+    were left out answers as the JAX server does: the same status, the same
+    channels after it, the same exported blob."""
+    from sdrangel_tpu.api.server import make_server as jax_make_server
+    from sdrangel_tpu.runtime.session import Session as JaxSession
+
+    base, session = api
+    jax_session = JaxSession()
+    jsrv = jax_make_server(jax_session, "127.0.0.1", 0)
+    threading.Thread(target=jsrv.serve_forever, kwargs={"poll_interval": 0.05},
+                     daemon=True).start()
+    try:
+        (tmp_path / "jax").mkdir()
+        (tmp_path / "port").mkdir()
+        want = _formerly_left_out_outcome(f"http://127.0.0.1:{jsrv.server_address[1]}",
+                                          jax_session, tmp_path / "jax", case)
+        got = _formerly_left_out_outcome(base, session, tmp_path / "port", case)
+    finally:
+        jax_session.shutdown()
+        jsrv.shutdown()
+        jsrv.server_close()
+    assert got == want
+    assert want[0] == (400 if case == "tlv_import" else 201 if case == "audioUdp" else 200)
+
+
+def _rtp_ports() -> tuple:
+    """A bound RTP socket on a free port p whose p + 1 is free for RTCP."""
+    import socket
+
+    for _ in range(50):
+        rtp_rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        rtp_rx.bind(("127.0.0.1", 0))
+        rtcp_rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        try:
+            rtcp_rx.bind(("127.0.0.1", rtp_rx.getsockname()[1] + 1))
+            return rtp_rx, rtcp_rx
+        except OSError:
+            rtp_rx.close()
+            rtcp_rx.close()
+    raise RuntimeError("no free RTP/RTCP port pair")
+
+
+def test_channel_udp_rtp_audio_egress(api):
+    """audioUdp / audioRtp stream the demod audio as UDP mono16 datagrams and
+    RTP L16 packets with an RTCP sender report (the AudioNetSink roles, JAX's
+    test_api.py case): the datagrams carry the channel's audio within 1 LSB,
+    the RTP samples equal the UDP stream's, in contiguous sequence, and the
+    /sdrangel/audio route lists both destinations."""
+    import socket
+
+    from sdrangel_tpu_torch.io import rtp, udp
+
+    udp_rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    udp_rx.bind(("127.0.0.1", 0))
+    rtp_rx, rtcp_rx = _rtp_ports()
+    for sock in (udp_rx, rtp_rx, rtcp_rx):
+        sock.settimeout(0.5)
+    base, session = api
+    _req(base, "/sdrangel/devicesets", "POST")
+    _req(base, "/sdrangel/deviceset/0/device/settings", "PATCH",
+         {**FM_SOURCE, "run_blocks": 4})
+    udp_to = f"127.0.0.1:{udp_rx.getsockname()[1]}"
+    rtp_to = f"127.0.0.1:{rtp_rx.getsockname()[1]}"
+    code, _ = _req(base, "/sdrangel/deviceset/0/channel", "POST",
+                   {"channelType": NFM, "inputFrequencyOffset": 20000.0, "squelch_db": -60.0,
+                    "audioUdp": udp_to, "audioRtp": rtp_to})
+    assert code == 201
+    code, audio_route = _req(base, "/sdrangel/audio")
+    assert code == 200 and [(o["kind"], o["destination"]) for o in audio_route["outputs"]] == [
+        ("udp", udp_to), ("rtp", rtp_to)]
+    received = {sock: [] for sock in (udp_rx, rtp_rx, rtcp_rx)}
+    done = threading.Event()
+
+    def drain(sock):  # while the set runs: a burst overflows a socket's buffer
+        while not done.is_set():
+            with contextlib.suppress(socket.timeout):
+                received[sock].append(sock.recv(65536))
+        sock.close()
+
+    readers = [threading.Thread(target=drain, args=(sock,)) for sock in received]
+    for r in readers:
+        r.start()
+    try:
+        _req(base, "/sdrangel/deviceset/0/device/run", "POST")
+        ds = _wait_idle(session)
+        time.sleep(1.0)
+    finally:
+        done.set()
+        for r in readers:
+            r.join()
+    got = np.concatenate([udp.decode_payload(d, "mono16") for d in received[udp_rx]])
+    pkts = [rtp.parse_packet(d) for d in received[rtp_rx]]
+    reports = [r for d in received[rtcp_rx] for r in rtp.parse_rtcp(d)]
+    audio = ds.drain_audio(0)
+    assert len(audio) == 4 * 16384 and tone_snr(audio, 1000.0, 48000.0) > 25.0
+    # the sink flushes its partial datagram when the set stops
+    assert len(got) == len(audio)
+    assert np.max(np.abs(got * 32768.0 - np.clip(audio * 32768.0, -32768, 32767))) <= 1.0
+    rtp_pcm = np.concatenate([np.frombuffer(p["payload"], ">i2") for p in pkts])
+    assert all(p["payload_type"] == rtp.PT_L16_MONO for p in pkts)
+    assert all((b["seq"] - a["seq"]) & 0xFFFF == 1 for a, b in zip(pkts, pkts[1:]))
+    n = len(rtp_pcm)
+    assert n == len(audio) // 480 * 480
+    np.testing.assert_array_equal(rtp_pcm, np.round(got[:n] * 32768.0).astype(np.int16))
+    assert any(r["type"] == "SR" and r["ssrc"] == pkts[0]["ssrc"] for r in reports)
+
+
+def test_tx_udp_af_ingest(api, tmp_path):
+    """afUdp on a Tx channel takes the modulator's audio from UDP mono16
+    datagrams (the channeltx/udpsink ingest role, JAX's test_api.py case):
+    the recorded capture demodulates back to the streamed 700 Hz tone."""
+    import socket
+
+    from sdrangel_tpu_torch.runtime.engine import ChannelSpec, DeviceConfig, RxPipeline
+
+    base, session = api
+    _req(base, "/sdrangel/devicesets", "POST", {"direction": "tx"})
+    out_path = str(tmp_path / "txudp.sdriq")
+    _req(base, "/sdrangel/deviceset/0/device/settings", "PATCH",
+         {"file_path": out_path, "sample_rate": 192000.0})
+    probe = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    code, _ = _req(base, "/sdrangel/deviceset/0/channel", "POST",
+                   {"channelType": "sdrangel.channeltx.modnfm", "inputFrequencyOffset": 20000.0,
+                    "afUdp": f"127.0.0.1:{port}"})
+    assert code == 201
+    _req(base, "/sdrangel/deviceset/0/device/run", "POST")
+    ds = session.device_sets[0]
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    n_sent = 0
+    t0 = time.time()
+    while ds.blocks_processed < 12 and time.time() - t0 < 60.0:
+        t = (n_sent + np.arange(480)) / 48000.0
+        pcm = np.clip(np.sin(2 * np.pi * 700.0 * t) * 24000, -32768, 32767).astype(np.int16)
+        tx.sendto(pcm.tobytes(), ("127.0.0.1", port))
+        n_sent += 480
+        time.sleep(0.002)
+    tx.close()
+    _req(base, "/sdrangel/deviceset/0/device/run", "DELETE")
+    _poll(lambda: not ds.running)
+    assert not ds.error, ds.error
+    info, mm = sdriq.open_mmap(out_path)
+    assert info.sample_rate == 192000 and ds.blocks_processed >= 12
+    pipe = RxPipeline(DeviceConfig(192000.0, log2_decim=0),
+                      [ChannelSpec(NFM, 20000.0, {"squelch_db": -100.0})], CPU)
+    n_blocks = mm.shape[0] // pipe.device_block
+    audio = np.concatenate([outs["channels"][0]["audio"] for _, outs in pipe.run(
+        lambda b, count: sdriq.read_block(mm, b * count, count), n_blocks)])
+    a = audio[len(audio) // 4:]
+    assert tone_snr(a - a.mean(), 700.0, 48000.0) > 8.0
 # -- the data channels: the data route, dataKeys, the DSD host report ----------------------
 
 DATA_CHANNELS = [

@@ -622,3 +622,45 @@ def test_data_channels_on_card_match_cpu(cuda_device, uri, offset, requested, se
                 assert agreement_db(10.0 ** (wv / 10.0), 10.0 ** (gv / 10.0)) >= 80.0
             elif np.any(wv != 0.0):
                 assert agreement_db(wv, gv) >= 80.0, k
+
+
+@pytest.mark.parametrize("log2", [1, 3, 6])
+@pytest.mark.parametrize("batch", [(), (3,)])
+def test_decimate_flat_iq_on_card_matches_plain(cuda_device, log2, batch):
+    """decimate_flat_iq launches K1 once per stream per block on the card;
+    three streamed blocks against the same calls on the CPU (K1's plain
+    version), and against one long block bit for bit."""
+    rng = np.random.default_rng(600 + log2)
+    x = rng.uniform(-0.9, 0.9, (*batch, 3 * (1001 << log2), 2)).astype(np.float32)
+    parts = np.split(x, 3, axis=-2)
+    sc = pdec.init_flat_iq_state(log2, cuda_device, batch)
+    sp = pdec.init_flat_iq_state(log2, torch.device("cpu"), batch)
+    launches = flat_decimate.launches
+    ys = []
+    for part in parts:
+        sc, yc = pdec.decimate_flat_iq(sc, t(part).to(cuda_device), log2)
+        sp, yp = pdec.decimate_flat_iq(sp, t(part), log2)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(n(yc), n(yp), atol=ATOL)
+        ys.append(n(yc))
+    assert flat_decimate.launches == launches + 3 * int(np.prod(batch))
+    np.testing.assert_array_equal(n(sc.tail), n(sp.tail))
+    _, y_long = pdec.decimate_flat_iq(pdec.init_flat_iq_state(log2, cuda_device, batch),
+                                      t(x).to(cuda_device), log2)
+    np.testing.assert_array_equal(np.concatenate(ys, axis=-2), n(y_long))
+
+
+def test_fftcorr_on_card_matches_cpu(cuda_device):
+    from sdrangel_tpu_torch.dsp import fftcorr
+
+    rng = np.random.default_rng(610)
+    states = {d: fftcorr.make_state(1024, (2,), d) for d in ("cpu", "cuda")}
+    for _ in range(3):
+        a = (rng.standard_normal((2, 4096)) + 1j * rng.standard_normal((2, 4096))
+             ).astype(np.complex64)
+        b = np.roll(a, 7, axis=-1)
+        out = {}
+        for d in states:
+            states[d], out[d] = fftcorr.correlate_block(states[d], t(a).to(d), t(b).to(d), 1024)
+        want = n(out["cpu"])
+        np.testing.assert_allclose(n(out["cuda"]), want, atol=ATOL * np.abs(want).max())

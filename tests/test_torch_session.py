@@ -14,17 +14,21 @@ JAX session, and the parts of it the JAX package lacks.
 - The two repairs: the read-back stays one block behind at publish_every=1,
   and a generation bump publishes the pending burst (only the part of a
   removed channel is dropped).
-- Left-out parts raise NotImplementedError naming their ROADMAP item; the
-  kernel build runs nvcc once for many threads.
+- The sharded source raises NotImplementedError naming its ROADMAP item;
+  the requests that named UDP/RTP or the reference presets while they were
+  left out answer as the JAX session does. The kernel build runs nvcc once
+  for many threads.
 """
 
 import ctypes
 import os
+import pathlib
 import subprocess
 import sys
 import textwrap
 import threading
 import time
+import wave
 
 import numpy as np
 import pytest
@@ -297,40 +301,116 @@ def test_generation_bump_drops_only_a_removed_channel(monkeypatch):
     assert removed.audio_samples == 0 and removed.audio == []
 
 
-def _tx_preset(s, source, channels=()):
-    s.presets["g/tx"] = {"schema": 2, "deviceSets": [
-        {"direction": "tx", "source": source, "channels": list(channels)}]}
-    s.load_preset("g", "tx")
-
-
-@pytest.mark.parametrize("case", [
-    "sharded", "audioUdp", "audioRtp", "udpAddress", "reference_export", "tlv_import", "afUdp",
-])
+@pytest.mark.parametrize("case", ["sharded"])
 def test_left_out_parts_raise_with_their_roadmap_item(tmp_path, case):
     s = psession.Session(device=CPU, preset_dir=str(tmp_path))
     ds = s.add_device_set()
-    item = {
-        "sharded": "item 9", "audioUdp": "item 12", "audioRtp": "item 12",
-        "udpAddress": "item 12", "reference_export": "item 13", "tlv_import": "item 13",
-        "afUdp": "item 12",
-    }[case]
-    actions = {
-        "afUdp": lambda: _tx_preset(s, {}, [{
-            "uri": "sdrangel.channeltx.modnfm", "inputFrequencyOffset": 0.0,
-            "settings": {"afUdp": "127.0.0.1:9999"}}]),
-        "sharded": lambda: ds.update_source({"sharded": True}),
-        "audioUdp": lambda: ds.add_channel(NFM, {"audioUdp": "127.0.0.1:9999"}),
-        "audioRtp": lambda: ds.add_channel(NFM, {"audioRtp": "127.0.0.1:9999"}),
-        "udpAddress": lambda: ds.add_channel(NFM, {"udpAddress": "127.0.0.1"}),
-        "reference_export": lambda: (s.save_preset("g", "p"),
-                                     s.export_preset_file("g", "p", "p.b64", fmt="reference")),
-        "tlv_import": lambda: ((tmp_path / "ref.b64").write_text("AAAAAAE="),
-                               s.import_preset_file("ref.b64")),
-    }
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
+    actions = {"sharded": lambda: ds.update_source({"sharded": True})}
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 9"):
         actions[case]()
     assert len(s.device_sets) == 1 and s.device_sets[0] is ds  # nothing was replaced
     assert ds.channels == [] and not ds.source.file_path
+
+
+def _session_actions(s, ds, tmp_path):
+    """The requests that named a part not ported before the UDP/RTP egress,
+    the afUdp ingest and the reference presets were ported."""
+    def tx_preset():
+        s.presets["g/tx"] = {"schema": 2, "deviceSets": [
+            {"direction": "tx", "source": {}, "channels": [{
+                "uri": "sdrangel.channeltx.modnfm", "inputFrequencyOffset": 0.0,
+                "settings": {"afUdp": "127.0.0.1:9999"}}]}]}
+        s.load_preset("g", "tx")
+
+    def reference_export():
+        ds.update_source({"center_frequency": 433_500_000.0})
+        ds.add_channel(NFM, {"inputFrequencyOffset": -25_000.0, "squelch_db": -45.0})
+        s.save_preset("g", "p")
+        s.export_preset_file("g", "p", "p.b64", fmt="reference")
+
+    def tlv_import(text):
+        (tmp_path / "ref.b64").write_text(text)
+        return s.import_preset_file("ref.b64")
+
+    return {
+        "afUdp": tx_preset,
+        "audioUdp": lambda: ds.add_channel(NFM, {"audioUdp": "127.0.0.1:9999"}),
+        "audioRtp": lambda: ds.add_channel(NFM, {"audioRtp": "127.0.0.1:9999"}),
+        "udpAddress": lambda: ds.add_channel(NFM, {"udpAddress": "127.0.0.1"}),
+        "reference_export": reference_export,
+        "tlv_import": lambda: tlv_import("AAAAAAE="),
+        "tlv_import_golden": lambda: tlv_import(
+            (pathlib.Path(REPO) / "tests" / "goldens" / "refpreset.b64").read_text()),
+    }
+
+
+def _session_outcome(make_session, tmp_path, case):
+    """What one request does to a fresh session: its answer (a value or the
+    exception's type), the device sets and channels, the presets and the
+    exported file."""
+    s = make_session(str(tmp_path))
+    ds = s.add_device_set()
+    try:
+        answer = _session_actions(s, ds, tmp_path)[case]()
+    except Exception as e:  # the answer is the exception's type
+        answer = type(e).__name__
+    sets = [(d.direction, [(c.uri, c.frequency_offset, dict(c.settings)) for c in d.channels])
+            for d in s.device_sets]
+    presets = {k: [[(c["uri"], c["inputFrequencyOffset"], c["settings"])
+                    for c in e["channels"]] for e in v["deviceSets"]]
+               for k, v in s.presets.items()}
+    exported = tmp_path / "p.b64"
+    return answer, sets, presets, exported.read_text() if exported.exists() else None
+
+
+@pytest.mark.parametrize("case", ["afUdp", "audioUdp", "audioRtp", "udpAddress",
+                                  "reference_export", "tlv_import", "tlv_import_golden"])
+def test_udp_rtp_and_reference_presets_answer_as_jax(tmp_path, case):
+    """Each request the port refused while UDP/RTP and the reference presets
+    were left out now answers as the JAX session does: the same value or
+    error, the same channels and presets, the same exported blob."""
+    from sdrangel_tpu.runtime.session import Session as JaxSession
+
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "port").mkdir()
+    want = _session_outcome(lambda d: JaxSession(preset_dir=d), tmp_path / "jax", case)
+    got = _session_outcome(lambda d: psession.Session(device=CPU, preset_dir=d),
+                           tmp_path / "port", case)
+    assert got == want
+    if case in ("afUdp", "audioUdp", "audioRtp", "udpAddress", "tlv_import_golden"):
+        assert want[0] not in ("ValueError", "NotImplementedError", "KeyError")
+
+
+def test_a_failing_udp_sink_stops_the_run_and_closes_the_rest(tmp_path, monkeypatch):
+    """A UDP audio sink whose sends fail (port 0: the kernel refuses it
+    locally) stops the run with the error recorded, as the JAX session does;
+    its close fails again, and every other sink and the recorder still
+    close: the other channel's WAV and the .sdriq are whole, and no
+    exception escapes the worker thread."""
+    escaped = []
+    monkeypatch.setattr(threading, "excepthook", escaped.append)
+    wav_path, rec_path = str(tmp_path / "a.wav"), str(tmp_path / "rec.sdriq")
+    ds = _port_set({"kind": "testsource", "sample_rate": 192_000.0, "carrier_freq": 20_000.0,
+                    "record_file": rec_path, "run_blocks": 4},
+                   [(NFM, {"inputFrequencyOffset": 20_000.0, "audioFile": wav_path}),
+                    (NFM, {"inputFrequencyOffset": 20_000.0, "audioUdp": "127.0.0.1:0"})])
+    ds.start()
+    t0 = time.time()
+    while ds.running and time.time() - t0 < 120:
+        time.sleep(0.02)
+    ds.stop()
+    assert not ds.running and ds.error.startswith("OSError"), ds.error
+    assert escaped == []
+    per_block = (1 << 16) * 48_000 // 192_000
+    with wave.open(wav_path, "rb") as w:
+        n = w.getnframes()
+        assert n > 0 and n % per_block == 0
+        assert len(w.readframes(n)) == 2 * n
+    info, mm = sdriq.open_mmap(rec_path)
+    assert mm.shape[0] > 0 and mm.shape[0] % (1 << 16) == 0
+    want = testsource.to_iq_int16(testsource.generate(testsource.TestSourceConfig(
+        sample_rate=192_000.0, carrier_freq=20_000.0, modulation="fm"), mm.shape[0]))
+    np.testing.assert_array_equal(np.asarray(mm), want)
 
 
 DSD = "sdrangel.channel.dsddemod"

@@ -6,6 +6,7 @@ oversubscribe the machine, and holds the comparison metrics the tests share.
 
 from __future__ import annotations
 
+import ast
 import json
 import pathlib
 
@@ -86,3 +87,16 @@ def real_best_lag(golden, ours, lags, skip: int):
                 s)
     return max(((lag, *fit(golden[max(0, lag):], ours[max(0, -lag):])) for lag in lags),
                key=lambda r: r[1])
+
+
+def code_without_docstrings(path: pathlib.Path) -> str:
+    """A module's AST with every docstring dropped: equal for a port's copy
+    whose code is its JAX original's and whose docs differ."""
+    tree = ast.parse(pathlib.Path(path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            body = node.body
+            if (body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
