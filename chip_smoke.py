@@ -1,6 +1,7 @@
 """Drive the PyTorch port's Rx product path, its channel-bank gear, its
 receivers, Tx, data channels, DATV and daemon transport, RDS, network
-egress and ingest, reference presets and library once on one CUDA card.
+egress and ingest, reference presets, library and mesh gears once on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -201,6 +202,25 @@ power limit as nvidia-smi reports them):
          the product capture through the native .sdriq loader (which must
          build) and through the memmap: the same WAV bytes, the loader's
          read time per block.
+  13. the mesh gears (parallel/mesh.py; K1-TC and K1 on every shard):
+     (a) phase 5's gear and blocks on a 2x2 mesh of four shards of the card
+         against the 1x1 gear: max |d| <= 2e-5 in every block, and against
+         the same mesh with K1-TC's plain version: >= 80 dB in every block;
+         K1-TC once per shard and block (12 in 3), the tone above 25 dB at
+         demods 5 and 6; the capture moved down by fs/64 (the inf passband)
+         on a 2x1 mesh at fc_pos=inf against its 1x1 gear (2e-5) and
+         against the same mesh with K1's plain version (80 dB), K1's
+         complex legs 6 in 3; each timed 1x1, mesh, mesh, 1x1 in ms a block;
+     (b) the all-to-all gear at (a)'s 2x2 width with four demods on each
+         grid channel, against the all-gather gear (2e-5, audio
+         un-permuted, K1-TC 12 in 3); bench.py's chain64a2a (÷1, PFB-256, 64
+         NFM over 64 slots, 2^25 blocks of seeded uniform int16) on a 1x1
+         mesh against the all-gather gear's same 64 channels; timed alike;
+     (c) (a)'s capture as a .sdriq through `python -m sdrangel_tpu_torch
+         server --device cuda`: a sharded set (1x1 mesh, PFB-4, 16 NFM,
+         run_blocks 3), then the same with sharded_pfb_a2a: each channel's
+         WAV what the direct step's audio quantizes to within 1e-6, the
+         report's realtimeFactor and a2aFallback.
 Then a JSON line of the kernels, and last the ok line. Any failed check
 raises: the script then exits non-zero and prints no ok line. It needs a
 card; without one it exits non-zero at once.
@@ -209,6 +229,7 @@ card; without one it exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -246,6 +267,7 @@ from sdrangel_tpu_torch.kernels.flat_decimate_tc import (
     flat_decimate_tc_reference,
 )
 from sdrangel_tpu_torch.parallel import sharded
+from sdrangel_tpu_torch.parallel.mesh import make_mesh
 from sdrangel_tpu_torch.profile_product import (
     RECEIVERS,
     _device_time,
@@ -671,7 +693,8 @@ def plain_tc_decimator():
         sharded.flat_decimate_tc = real_kernel
 
 
-def phase_bank(dev: torch.device, tag: str) -> int:
+def phase_bank(dev: torch.device, tag: str) -> tuple[int, list[torch.Tensor]]:
+    """Phase 5; returns K1-TC's launches and the capture's blocks on the card."""
     n_blocks = 3
     cfg = chainsharded_config()
     check(cfg.device_rate == GEAR_RATE and cfg.block == GEAR_BLOCK, "gear configuration")
@@ -751,7 +774,7 @@ def phase_bank(dev: torch.device, tag: str) -> int:
           f"{launches} in the last K1-TC run; tone SNR {snrs[0]:.2f} / {snrs[1]:.2f} dB "
           f"(demods {tone_demods}); audio agreement {agree:.2f} dB over the bank, "
           f"{min(per_channel):.2f} dB at the worst channel [{tag}]", flush=True)
-    return launches
+    return launches, xs
 
 
 #: phase 6: each receiver's device block (the engine's block solver at
@@ -3206,6 +3229,290 @@ def phase_slice(dev: torch.device, product_blocks: list[np.ndarray], tag: str) -
     return {"launches": launches, "flat_iq": library}
 
 
+# -- phase 13: the mesh gears (parallel/mesh.py) on shards of the card ---------------
+
+MESH_BLOCKS = 3
+MESH_ATOL = 2e-5  # tests/test_sharding.py test_sharded_pfb_matches_single_device's bar
+
+
+def gear_audio(step, init_fn, xs: list[torch.Tensor], args: tuple) -> tuple[np.ndarray, float]:
+    """A gear over the blocks from its initial state: (audio (C, blocks·A)
+    fetched, host seconds around a synchronize)."""
+    state, carry = init_fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    audio = []
+    for x in xs:
+        state, a, carry = step(state, x, carry, *args)[:3]
+        audio.append(a)
+    out = torch.cat(audio, dim=-1).cpu().numpy()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def alternated(runs: dict, counter=None) -> dict:
+    """Each run twice in the order a, b, b, a (after a warm-up of each on
+    one block): {name: (its last audio, mean ms/block, launches per run)}."""
+    (a, run_a), (b, run_b) = runs.items()
+    for run in (run_a, run_b):
+        run(1)
+    seconds = {a: [], b: []}
+    out = {}
+    for name in (a, b, b, a):
+        if counter is not None:
+            counter.launches = 0
+        audio, elapsed = runs[name](MESH_BLOCKS)
+        seconds[name].append(elapsed)
+        out[name] = (audio, None if counter is None else counter.launches)
+    return {k: (out[k][0], sum(v) / len(v) / MESH_BLOCKS * 1e3, out[k][1])
+            for k, v in seconds.items()}
+
+
+def block_errors(want: np.ndarray, got: np.ndarray) -> list[float]:
+    per = want.shape[-1] // MESH_BLOCKS
+    return [float(np.abs(want[:, i * per:(i + 1) * per] - got[:, i * per:(i + 1) * per]).max())
+            for i in range(MESH_BLOCKS)]
+
+
+def block_agreement(want: np.ndarray, got: np.ndarray) -> list[float]:
+    """Per block, the bank's audio agreement in dB (`agreement_db`)."""
+    per = want.shape[-1] // MESH_BLOCKS
+    return [agreement_db(want[:, i * per:(i + 1) * per], got[:, i * per:(i + 1) * per])
+            for i in range(MESH_BLOCKS)]
+
+
+def shifted_down(x: torch.Tensor, r: int) -> torch.Tensor:
+    """The int16 capture x·e^{−j2πn/r} (its spectrum moved down by fs/r),
+    requantized: at ÷64 the inf placement's passband is centred on −fs/64."""
+    n = torch.arange(x.shape[0], device=x.device) % r
+    rot = torch.polar(torch.ones(r, device=x.device), -2 * np.pi / r * torch.arange(
+        r, device=x.device, dtype=torch.float32))[n]
+    y = torch.view_as_real(torch.complex(x[:, 0].float(), x[:, 1].float()) * rot)
+    return torch.round(y).clamp(-32768, 32767).to(torch.int16)
+
+
+def pcm_agrees(pcm: np.ndarray, audio: np.ndarray, tol: float = 1e-6) -> bool:
+    """The WAV's int16 samples are what the session's float audio quantizes
+    to if it lies within `tol` of `audio` (the route's rounding)."""
+    def q(a):
+        return np.clip(a * 32768.0, -32768, 32767).astype(np.int16)
+    lo, hi = q(audio - tol), q(audio + tol)
+    return pcm.shape == audio.shape and bool(np.all((pcm >= lo) & (pcm <= hi)))
+
+
+def phase_mesh(dev: torch.device, xs: list[torch.Tensor], tag: str) -> dict:
+    """Phase 13: 13a the all-gather gear on 2×2 and 2×1 (inf) meshes of
+    shards of the card, each against the 1×1 gear and against the same mesh
+    with the kernel's plain version, 13b the all-to-all gear at 2×2 and
+    bench.py's chain64a2a, 13c the sharded session through the `server`
+    CLI."""
+    t_phase = time.perf_counter()
+    cfg1 = chainsharded_config()
+    offs = chainsharded_offsets(cfg1)
+    idx, res = sharded.grid_split(cfg1, offs)
+    args = (torch.from_numpy(res).to(dev), torch.from_numpy(idx).to(dev))
+    tone_demods = (5, 6)  # phase 5's carriers
+    launches = {}
+    ms = {}
+
+    def runner(cfg, mesh, blocks, step_args):
+        step, init_fn = sharded.build_sharded_step(cfg, mesh)
+        return lambda n: gear_audio(step, init_fn, blocks[:n], step_args)
+
+    # 13a: 2×2 against 1×1, K1-TC on every shard; then against the same
+    # mesh with K1-TC's plain version (its 2^24-sample shards and halos)
+    cfg4 = dataclasses.replace(cfg1, n_time=2, n_channel=2)
+    out = alternated({"1x1": runner(cfg1, dev, xs, args),
+                      "2x2": runner(cfg4, make_mesh(2, 2, [dev] * 4), xs, args)},
+                     counter=flat_decimate_tc)
+    one, ms["13a 1x1"], _ = out["1x1"]
+    four, ms["13a 2x2"], launches["13a_2x2"] = out["2x2"]
+    with plain_tc_decimator():
+        plain4, _ = runner(cfg4, make_mesh(2, 2, [dev] * 4), xs, args)(MESH_BLOCKS)
+    errs = block_errors(one, four)
+    agree4 = block_agreement(plain4, four)
+    snrs = [tone_snr(four[k, four.shape[1] // 2:].astype(np.float64), 1000.0, 48_000.0)
+            for k in tone_demods]
+    check(bool(np.isfinite(four).all()) and max(errs) <= MESH_ATOL,
+          f"13a: 2x2 against 1x1 per block {errs}")
+    check(min(agree4) >= 80.0, f"13a: 2x2 against its plain-K1-TC run per block {agree4} dB")
+    check(launches["13a_2x2"] == 4 * MESH_BLOCKS > 0,
+          f"13a: K1-TC launched {launches['13a_2x2']} times, 4 shards x {MESH_BLOCKS}")
+    check(min(snrs) > 25.0, f"13a: tone SNR {snrs} dB")
+    print(f"phase 13a mesh: chainsharded on a 2x2 mesh of four shards of {dev}: max |d| per "
+          f"block against the 1x1 gear {[f'{e:.2e}' for e in errs]} (bar {MESH_ATOL}); "
+          f"against the same mesh with K1-TC's plain version {[f'{a:.2f}' for a in agree4]} dB "
+          f"per block (bar 80), max |d| {[f'{e:.2e}' for e in block_errors(plain4, four)]}; "
+          f"K1-TC {launches['13a_2x2']} launches in {MESH_BLOCKS} blocks (one per shard and "
+          f"block); tone SNR {snrs[0]:.2f} / {snrs[1]:.2f} dB (demods {tone_demods}); "
+          f"{ms['13a 2x2']:.3f} ms/block against the 1x1 gear's {ms['13a 1x1']:.3f}, mean of 2 "
+          f"runs each, order 1x1, 2x2, 2x2, 1x1 [{tag}]", flush=True)
+    del plain4
+
+    # 13a: a 2×1 mesh at fc_pos=inf, K1's complex legs on each time shard;
+    # then against the same mesh with K1's plain version
+    inf = [shifted_down(x, 1 << cfg1.log2_decim) for x in xs]
+    cfg_inf = dataclasses.replace(cfg1, fc_pos="inf")
+    cfg_inf2 = dataclasses.replace(cfg_inf, n_time=2)
+    out = alternated({"1x1": runner(cfg_inf, dev, inf, args),
+                      "2x1": runner(cfg_inf2, make_mesh(2, 1, [dev] * 2), inf, args)},
+                     counter=flat_decimate)
+    one_inf, ms["13a inf 1x1"], _ = out["1x1"]
+    two_inf, ms["13a inf 2x1"], launches["13a_2x1_inf"] = out["2x1"]
+    with plain_decimator():
+        plain_inf, _ = runner(cfg_inf2, make_mesh(2, 1, [dev] * 2), inf, args)(MESH_BLOCKS)
+    errs_inf = block_errors(one_inf, two_inf)
+    agree_inf = block_agreement(plain_inf, two_inf)
+    snrs_inf = [tone_snr(two_inf[k, two_inf.shape[1] // 2:].astype(np.float64), 1000.0,
+                         48_000.0) for k in tone_demods]
+    check(max(errs_inf) <= MESH_ATOL, f"13a inf: 2x1 against 1x1 per block {errs_inf}")
+    check(min(agree_inf) >= 80.0,
+          f"13a inf: 2x1 against its plain-K1 run per block {agree_inf} dB")
+    check(launches["13a_2x1_inf"] == 2 * MESH_BLOCKS > 0,
+          f"13a inf: K1 launched {launches['13a_2x1_inf']} times")
+    check(min(snrs_inf) > 25.0, f"13a inf: tone SNR {snrs_inf} dB")
+    print(f"phase 13a mesh: the capture moved down by fs/64 (the inf passband) at fc_pos=inf on "
+          f"a 2x1 mesh: max |d| per block against the 1x1 gear "
+          f"{[f'{e:.2e}' for e in errs_inf]}; against the same mesh with K1's plain version "
+          f"{[f'{a:.2f}' for a in agree_inf]} dB per block (bar 80), max |d| "
+          f"{[f'{e:.2e}' for e in block_errors(plain_inf, two_inf)]}; K1 (complex legs) "
+          f"{launches['13a_2x1_inf']} launches; tone SNR {snrs_inf[0]:.2f} / "
+          f"{snrs_inf[1]:.2f} dB; {ms['13a inf 2x1']:.3f} ms/block against "
+          f"{ms['13a inf 1x1']:.3f} [{tag}]", flush=True)
+    del inf, plain_inf
+
+    # 13b: the all-to-all gear at 13a's 2×2 width, four demods on each grid
+    # channel (so every shard's grid chunk holds four), against the all-gather gear
+    # (phase 5's residual of demod k is offs[k] − (k mod 4 − 1.5)·2·grid)
+    grid = cfg1.baseband_rate / cfg1.pfb_m
+    offs_b = np.array([(0, 1, 2, -1)[k % 4] * grid + (offs[k] - (k % 4 - 1.5) * 2 * grid)
+                       for k in range(16)])
+    cfg4a = dataclasses.replace(cfg4, pfb_all_to_all=True)
+    orders, local_idx, residuals = sharded.a2a_placement(cfg4a, [offs_b])
+    idx_b, res_b = sharded.grid_split(cfg4, offs_b)
+    mesh4 = make_mesh(2, 2, [dev] * 4)
+    out = alternated({
+        "all-gather": runner(cfg4, mesh4, xs, (torch.from_numpy(res_b).to(dev),
+                                               torch.from_numpy(idx_b).to(dev))),
+        "a2a": runner(cfg4a, mesh4, xs, (torch.from_numpy(residuals[0]).to(dev),
+                                         torch.from_numpy(local_idx[0]).to(dev)))},
+        counter=flat_decimate_tc)
+    gathered, ms["13b all-gather 2x2"], _ = out["all-gather"]
+    swapped, ms["13b a2a 2x2"], launches["13b_a2a_2x2"] = out["a2a"]
+    unperm = np.empty_like(swapped)
+    unperm[orders[0]] = swapped
+    errs_a = block_errors(gathered, unperm)
+    carrier_demods = [k for k in range(16) if abs(offs_b[k] - offs[5]) < 1.0
+                      or abs(offs_b[k] - offs[6]) < 1.0]
+    snrs_a = [tone_snr(unperm[k, unperm.shape[1] // 2:].astype(np.float64), 1000.0, 48_000.0)
+              for k in carrier_demods]
+    check(max(errs_a) <= MESH_ATOL and min(snrs_a) > 25.0,
+          f"13b: a2a against all-gather per block {errs_a}, tone SNR {snrs_a}")
+    check(launches["13b_a2a_2x2"] == 4 * MESH_BLOCKS, f"13b: K1-TC {launches['13b_a2a_2x2']}")
+    print(f"phase 13b mesh: the all-to-all gear on the 2x2 mesh (4 NFM on each of the 4 grid "
+          f"channels, one grid channel per shard) against the all-gather gear: max |d| per "
+          f"block {[f'{e:.2e}' for e in errs_a]}; tone SNR {min(snrs_a):.2f} dB at the "
+          f"carriers' demods {carrier_demods}; K1-TC {launches['13b_a2a_2x2']} launches; "
+          f"{ms['13b a2a 2x2']:.3f} ms/block against {ms['13b all-gather 2x2']:.3f} [{tag}]",
+          flush=True)
+
+    # 13b: bench.py's chain64a2a on a 1×1 mesh: ÷1, PFB-256, 64 NFM over
+    # 64 slots (bench.py:176-180), the bench's uniform int16 input
+    cfg64 = sharded.ShardedPipelineConfig(
+        n_time=1, n_channel=1, device_rate=GEAR_RATE, log2_decim=0, block=GEAR_BLOCK,
+        pfb_m=256, pfb_all_to_all=True, bank=(sharded.BankGroup(NFM, 64, {
+            "squelch_db": -100.0, "squelch_gate_ms": 1.0}),))
+    slots = np.array([c if c < 32 else c - 64 for c in range(64)])
+    offs64 = slots * (GEAR_RATE / 256) + np.linspace(-4000.0, 4000.0, 64)
+    orders64, local64, res64 = sharded.a2a_placement(cfg64, [offs64])
+    cfg64g = dataclasses.replace(cfg64, pfb_all_to_all=False)
+    idx64, res64g = sharded.grid_split(cfg64g, offs64)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    noise = [torch.randint(-2048, 2048, (GEAR_BLOCK, 2), generator=gen, device=dev,
+                           dtype=torch.int16) for _ in range(MESH_BLOCKS)]
+    out = alternated({
+        "all-gather": runner(cfg64g, dev, noise, (torch.from_numpy(res64g).to(dev),
+                                                  torch.from_numpy(idx64).to(dev))),
+        "a2a": runner(cfg64, dev, noise, (torch.from_numpy(res64[0]).to(dev),
+                                          torch.from_numpy(local64[0]).to(dev)))})
+    g64, ms["13b chain64 all-gather 1x1"], _ = out["all-gather"]
+    a64, ms["13b chain64a2a 1x1"], _ = out["a2a"]
+    un64 = np.empty_like(a64)
+    un64[orders64[0]] = a64
+    errs64 = block_errors(g64, un64)
+    check(bool(np.isfinite(a64).all()) and np.abs(a64).max() > 0.01 and max(errs64) <= MESH_ATOL,
+          f"13b chain64a2a: against the all-gather gear per block {errs64}")
+    print(f"phase 13b mesh: chain64a2a (12.288 MS/s, /1, PFB-256, 64 NFM over 64 slots, "
+          f"2^25-sample blocks of uniform int16 in [-2048, 2048) from seed 7) on a 1x1 mesh: "
+          f"max |d| per block against the all-gather gear's same 64 channels "
+          f"{[f'{e:.2e}' for e in errs64]}; {ms['13b chain64a2a 1x1']:.3f} ms/block against "
+          f"{ms['13b chain64 all-gather 1x1']:.3f} [{tag}]", flush=True)
+    del noise
+
+    # 13c: the sharded session through the server CLI, 13a's capture as a .sdriq
+    step_a, init_a = sharded.build_sharded_step(
+        dataclasses.replace(cfg1, pfb_all_to_all=True), dev)
+    orders_c, local_c, res_c = sharded.a2a_placement(
+        dataclasses.replace(cfg1, pfb_all_to_all=True), [offs])
+    direct_a2a, _ = gear_audio(step_a, init_a, xs, (torch.from_numpy(res_c[0]).to(dev),
+                                                    torch.from_numpy(local_c[0]).to(dev)))
+    direct = {"pfb": one, "a2a": np.empty_like(direct_a2a)}
+    direct["a2a"][orders_c[0]] = direct_a2a
+    reports = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "gear.sdriq")
+        writer = sdriq.SdriqWriter(path, sample_rate=int(GEAR_RATE))
+        for x in xs:
+            writer.write(x.cpu().numpy())
+        writer.close()
+        with server_process(tmp, "13c sharded server") as (base, logs):
+            check(http(base, "/sdrangel/devicesets", "POST")[0] == 201, "13c: add set")
+            code, reply = http(base, "/sdrangel/deviceset/0/device/settings", "PATCH", {
+                "kind": "filesource", "file_path": path, "log2_decim": 6, "sharded": True,
+                "sharded_pfb_m": 4, "sharded_block": GEAR_BLOCK, "run_blocks": MESH_BLOCKS})
+            check(code == 200, f"13c: device settings {reply}")
+            for off in offs:
+                code, reply = http(base, "/sdrangel/deviceset/0/channel", "POST", {
+                    "channelType": NFM, "inputFrequencyOffset": float(off),
+                    "squelch_db": -100.0, "squelch_gate_ms": 1.0})
+                check(code == 201, f"13c: add channel {reply}")
+            for gear in ("pfb", "a2a"):
+                if gear == "a2a":
+                    code, reply = http(base, "/sdrangel/deviceset/0/device/settings", "PATCH",
+                                       {"sharded_pfb_a2a": True})
+                    check(code == 200, f"13c: a2a {reply}")
+                wall = run_to_idle(base, f"13c {gear}")
+                _, device = http(base, "/sdrangel/deviceset/0/device/report")
+                _, summary = http(base, "/sdrangel")
+                entry = summary["devicesetlist"]["deviceSets"][0]
+                pcm = []
+                for j in range(16):
+                    code, wav_bytes = http(base, f"/sdrangel/deviceset/0/channel/{j}/audio")
+                    check(code == 200, f"13c {gear}: audio {j}")
+                    with wave.open(io.BytesIO(wav_bytes)) as w:
+                        pcm.append(np.frombuffer(w.readframes(w.getnframes()), np.int16))
+                pcm = np.stack(pcm)
+                runs = 1 + (gear == "a2a")  # the count goes on across runs
+                check(device["blocksProcessed"] == runs * MESH_BLOCKS and not entry["a2aFallback"]
+                      and pcm_agrees(pcm, direct[gear]),
+                      f"13c {gear}: {device} {entry['a2aFallback']} pcm {pcm.shape} "
+                      f"{logs[-1][-2000:] if logs else ''}")
+                reports[gear] = {"realtimeFactor": device["realtimeFactor"],
+                                 "elapsedSeconds": device["elapsedSeconds"],
+                                 "a2aFallback": entry["a2aFallback"], "wall_s": wall}
+                print(f"phase 13c mesh: python -m sdrangel_tpu_torch server --device {DEVICE}, "
+                      f"sharded {'PFB-4 all-gather' if gear == 'pfb' else 'PFB-4 all-to-all'} "
+                      f"gear on a 1x1 mesh of the card, 13a's capture from a .sdriq, "
+                      f"{MESH_BLOCKS} blocks: realtimeFactor {device['realtimeFactor']:.3f}, "
+                      f"{device['elapsedSeconds'] / MESH_BLOCKS * 1e3:.3f} ms/block (device "
+                      f"report, the process's {'first' if gear == 'pfb' else 'second'} run), "
+                      f"a2aFallback {entry['a2aFallback']}; the 16 channels' WAV equal to the "
+                      f"direct step's audio within 1e-6 as 16-bit PCM shows it [{tag}]",
+                      flush=True)
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s [{tag}]", flush=True)
+    return {"launches": launches, "ms": ms, "session": reports}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -3262,7 +3569,7 @@ def main() -> int:
     tc = phase_k1_tc(dev, tag)
     launches, product_blocks = phase_product(pipe, tag)
     phase_cli(tag)
-    tc_launches = phase_bank(dev, tag)
+    tc_launches, gear_blocks = phase_bank(dev, tag)
     phase_receivers(dev, tag)
     server_launches = phase_server(pipe, product_blocks, tag)
     tx_loopback_launches = phase_tx(dev, tag)
@@ -3279,6 +3586,7 @@ def main() -> int:
     daemon_launches = phase_daemon(tag)
     phase_codec(tag)
     slice12 = phase_slice(dev, product_blocks, tag)
+    mesh13 = phase_mesh(dev, gear_blocks, tag)
 
     print(tag, flush=True)
     print(json.dumps({"kernels": [{
@@ -3301,6 +3609,7 @@ def main() -> int:
                           "datv": datv["k1"], "daemon_rx": daemon_launches},
         "slice12_launches": slice12["launches"],
         "flat_iq": slice12["flat_iq"],
+        "mesh_launches": {"13a_2x1_inf": mesh13["launches"]["13a_2x1_inf"]},
     }, {
         "name": "flat_decimate_tc",
         "route": "cuda",
@@ -3313,6 +3622,9 @@ def main() -> int:
         "bound_ms": tc["bound_ms"],
         "bound_by": tc["bound_by"],
         "library_ms": tc["library_ms"],
+        "mesh_launches": {k: v for k, v in mesh13["launches"].items() if k != "13a_2x1_inf"},
+        "mesh_ms": mesh13["ms"],
+        "mesh_session": mesh13["session"],
     }, {
         "name": "pll_scan",
         "route": "cuda",

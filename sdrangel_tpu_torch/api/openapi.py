@@ -124,6 +124,9 @@ STATIC_SCHEMAS = {
             "state": {"type": "string"},
             "error": {"type": "string"},
             "realtimeFactor": {"type": "number"},
+            # the sharded all-to-all gear fell back to the all-gather gear
+            # after a live retune it could not place (DeviceSet.a2a_fallback)
+            "a2aFallback": {"type": "boolean"},
             "channelcount": {"type": "integer"},
             "channels": {"type": "array", "items": _ref("ChannelSummary")}}},
     "ChannelSummary": {

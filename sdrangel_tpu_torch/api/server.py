@@ -28,9 +28,9 @@ modulators: POST /sdrangel/devicesets {"direction": "tx"}, or
 its sink's.
 
 Errors: a malformed request or setting is a 400, an unknown index or key a
-404, and a part not ported yet (the sharded source on several GPUs:
-ROADMAP.md queue 1, item 9) a 501 whose message names its ROADMAP item. An unknown channel kind is a 404, the
-Tx kind sdrangel.channeltx.modatv included, as the JAX server answers.
+404. An unknown channel kind is a 404, the Tx kind sdrangel.channeltx.modatv
+included, as the JAX server answers. The sharded source's settings
+(`sharded`, `mesh_*`, `sharded_*`) apply as any other device setting.
 """
 
 from __future__ import annotations

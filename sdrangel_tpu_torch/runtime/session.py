@@ -52,9 +52,13 @@ udpPort streams its formatted output as datagrams (udpFormat); a Tx channel
 with afUdp takes its audio from mono16 datagrams. Presets are exported and
 imported as JSON or as the reference's Base64-TLV blob (runtime/refpreset.py).
 
-The Rx and Tx sessions on the one-pipeline worker are what the port
-carries. The sharded worker raises NotImplementedError naming its ROADMAP
-item.
+An Rx set with `sharded` runs the channel-bank gears of parallel/sharded.py
+on a (mesh_time × mesh_channel) mesh in place of `RxPipeline`: the card's
+visible devices for a cuda session (or the group's, after
+`parallel.mesh.init_distributed`), every shard on the CPU for a cpu session.
+Each process feeds only the time rows it holds (parallel/hostfeed.py) and
+publishes only the channel rows it holds; `run_blocks` stops every process
+of a mesh at the same block.
 """
 
 from __future__ import annotations
@@ -64,6 +68,7 @@ import contextlib
 import dataclasses
 import json
 import logging
+import math
 import os
 import platform
 import queue
@@ -82,21 +87,15 @@ from ..channels.registry import REGISTRY
 from ..dsp import spectrum as dsp_spectrum
 from ..dsp.types import INPUT_FORMATS
 from ..io import daemon, rtp, sdriq, testsource, udp
+from ..parallel import hostfeed
+from ..parallel import mesh as meshmod
+from ..parallel import sharded as shmod
 from . import refpreset
 from .engine import ChannelSpec, DeviceConfig, RxPipeline, fetch, resolve_device, unpack_outs
 from .fifo import BlockFifo
 from .tx import BLOCK_AF, TxChannelSpec, TxDeviceConfig, TxPipeline
 
-ITEM_SHARDED = ("ROADMAP.md queue 1, item 9 (parallel/ on several GPUs: the sharded "
-                "session worker with K1-TC)")
-
-#: the JAX session's device settings of parts not ported yet: name ->
-#: (the JAX default, which changes nothing and passes, ROADMAP item)
-_UNPORTED_SOURCE_FIELDS = {
-    "sharded": (False, ITEM_SHARDED), "mesh_time": (0, ITEM_SHARDED),
-    "mesh_channel": (1, ITEM_SHARDED), "sharded_block": (0, ITEM_SHARDED),
-    "sharded_pfb_m": (0, ITEM_SHARDED), "sharded_pfb_a2a": (False, ITEM_SHARDED),
-}
+_log = logging.getLogger(__name__)
 
 #: available source kinds (the DeviceEnumerator role: software sources only)
 SOURCE_KINDS = {
@@ -341,7 +340,18 @@ class SourceSettings:
     spectrum_overlap: int = 0
     # non-empty: the device stream is recorded to this .sdriq (FileRecord)
     record_file: str = ""
-    # > 0: acquisition ends itself after this many blocks (play once)
+    # the mesh-sharded bank (parallel/sharded.py) in place of RxPipeline
+    sharded: bool = False
+    mesh_time: int = 0  # 0 = the mesh's devices / mesh_channel
+    mesh_channel: int = 1
+    sharded_block: int = 0  # device-rate samples per step (0 = 2^17, aligned)
+    # > 0: the bank's polyphase DFT grid of M channels (the PFB gear): an
+    # offset snaps to the grid, its residual rides the demod's NCO
+    sharded_pfb_m: int = 0
+    # with sharded_pfb_m: the all-to-all gear, channels placed by grid chunk
+    sharded_pfb_a2a: bool = False
+    # > 0: acquisition ends itself after this many blocks (play once; the
+    # processes of a mesh all stop at the same block)
     run_blocks: int = 0
     # blocks read back together, one copy per burst
     publish_every: int = 1
@@ -378,17 +388,11 @@ def coerce_settings(target, settings: dict) -> dict:
 
 
 def check_source(settings: dict) -> dict:
-    """The device settings without the JAX session's fields of parts not
-    ported yet, which must hold their inert defaults: another value raises
-    NotImplementedError naming the ROADMAP item."""
+    """The device settings, their kind checked (ValueError on an unknown one)."""
     if settings.get("kind", "testsource") not in SOURCE_KINDS:
         raise ValueError(f"unknown source kind {settings['kind']!r}; "
                          f"available: {sorted(SOURCE_KINDS)}")
-    for k, (default, item) in _UNPORTED_SOURCE_FIELDS.items():
-        if k in settings and settings[k] != default:
-            raise NotImplementedError(f"device setting {k}={settings[k]!r} is not ported "
-                                      f"yet: {item}")
-    return {k: v for k, v in settings.items() if k not in _UNPORTED_SOURCE_FIELDS}
+    return settings
 
 
 def check_sink(settings: dict) -> dict:
@@ -517,6 +521,17 @@ class DeviceSet:
         # rebuilds), and its receiver's frame statistics (kept after a stop)
         self._daemon: DaemonSource | None = None
         self.daemon_stats: daemon.FrameStats | None = None
+        # the all-to-all gear's fallback: a live retune whose grid channels no
+        # longer balance over the shards makes the worker run the all-gather
+        # gear for the rest of the generation (a static change retries a2a);
+        # held as the generation it applies to
+        self._a2a_fallback_gen = -1
+
+    @property
+    def a2a_fallback(self) -> bool:
+        """True while the sharded worker runs the all-gather gear because the
+        all-to-all gear could not place the current channel grid."""
+        return self._a2a_fallback_gen == self._gen
 
     # -- configuration -------------------------------------------------------
 
@@ -712,8 +727,14 @@ class DeviceSet:
         return dyn, rebuild
 
     def _work(self) -> None:
+        """Each worker runs generations until a stop, an error or a flip of
+        `sharded`, which hands over to the other."""
         try:
-            self._work_regular()
+            while not self._stop.is_set() and not self.error:
+                if self.source.sharded:
+                    self._work_sharded()
+                else:
+                    self._work_regular()
         finally:
             self.running = False
 
@@ -731,6 +752,8 @@ class DeviceSet:
             while not self._stop.is_set():
                 with self._lock:
                     gen = self._gen
+                    if self.source.sharded:
+                        return  # the sharded worker takes over
                     pipe, open_reader = self._build_pipeline()
                     chans = list(self.channels)  # the pipeline's channels, in its order
                     self._sync_sinks(egress)
@@ -868,6 +891,202 @@ class DeviceSet:
             self.blocks_processed += 1
         for ch, (soft_i, soft_q, rounds), fec_rate in decodes:
             ch.host_report = {"datv": DatvHostDecode.decode(soft_i, soft_q, rounds, fec_rate)}
+
+    # -- the sharded worker (parallel/sharded.py) ---------------------------
+
+    def _bank_plan(self, n_channel: int) -> tuple[tuple, list]:
+        """The channels as the bank's homogeneous groups (kind and settings
+        alike): (groups, chmap), chmap[g] the channel indices of group g's
+        rows, in order (caller holds the lock)."""
+        order, by_key = [], {}
+        for idx, ch in enumerate(self.channels):
+            kind = REGISTRY.get(ch.uri)
+            if kind is None or kind.output != "audio":
+                raise ValueError(f"sharded device sets support audio channel kinds; "
+                                 f"channel {idx} is {ch.uri}")
+            if "offset_hz" not in kind.dynamic_fields:
+                raise ValueError(f"{ch.uri} cannot run sharded (its offset is not a "
+                                 f"per-block argument)")
+            st = {k: v for k, v in ch.settings.items() if k not in registry.SESSION_KEYS}
+            key = (ch.uri, tuple(sorted(st.items())))
+            if key not in by_key:
+                by_key[key] = []
+                order.append(key)
+            by_key[key].append(idx)
+        groups, chmap = [], []
+        for key in order:
+            idxs = by_key[key]
+            if len(idxs) % n_channel:
+                raise ValueError(f"{key[0]}: {len(idxs)} channels with identical settings "
+                                 f"needed in multiples of the mesh channel axis {n_channel}")
+            groups.append(shmod.BankGroup(key[0], len(idxs), dict(key[1])))
+            chmap.append(idxs)
+        return tuple(groups), chmap
+
+    def _work_sharded(self) -> None:
+        """The sharded engine thread: the mesh gear as the set's acquisition
+        loop, with _work_regular's generations. Each block: this process's
+        time rows read (filesource through hostfeed, or the test source),
+        the live offsets as per-block arguments, the step, the held rows
+        published."""
+        egress = _Egress()
+        pos_blocks = 0  # block index, kept across rebuilds
+        t_start = None
+        signal_s = 0.0
+        try:
+            while not self._stop.is_set():
+                with self._lock:
+                    gen = self._gen
+                    src = self.source
+                    if not src.sharded:
+                        return  # the one-pipeline worker takes over
+                    n_channel = max(1, int(src.mesh_channel))
+                    # the group's places under init_distributed, else the
+                    # visible cards; a cpu set puts every shard on the CPU
+                    places = meshmod.group_places() or (
+                        meshmod.default_places() if self.device.type == "cuda" else [])
+                    n_time = int(src.mesh_time) or max(1, len(places) // n_channel)
+                    places = places or [self.device] * (n_time * n_channel)
+                    groups, chmap = self._bank_plan(n_channel)
+                    if src.kind == "filesource" and src.file_path:
+                        info = sdriq.read_header(src.file_path)
+                        src.sample_rate = float(info.sample_rate)
+                        if info.center_frequency:
+                            src.center_frequency = float(info.center_frequency)
+                    self._sync_sinks(egress)
+                    run_blocks, throttle = src.run_blocks, src.throttle
+                if not groups:
+                    time.sleep(0.05)
+                    continue
+                # shard length (4·2^k per time shard) and, with a PFB gear,
+                # whole frames on every shard of the mesh in one alignment,
+                # so the analysis is frame-sharded at any sharded_block
+                pfb_m = int(src.sharded_pfb_m)
+                a2a = bool(src.sharded_pfb_a2a) and bool(pfb_m) and not self.a2a_fallback
+                align = ((math.lcm(4, pfb_m or 1) << src.log2_decim)
+                         * n_time * (n_channel if pfb_m else 1))
+                if a2a:  # the a2a spectrum tap's frames align with the time shards
+                    align = math.lcm(align, int(src.spectrum_fft_size) * n_time
+                                     << src.log2_decim)
+                block = int(src.sharded_block) or (1 << 17)
+                block = max(block // align, 1) * align
+                cfg = shmod.ShardedPipelineConfig(
+                    n_time=n_time, n_channel=n_channel, device_rate=src.sample_rate,
+                    log2_decim=src.log2_decim, fc_pos=src.fc_pos, block=block, bank=groups,
+                    pfb_m=pfb_m, pfb_all_to_all=a2a,
+                    spectrum=dsp_spectrum.SpectrumConfig(
+                        fft_size=int(src.spectrum_fft_size), averaging_mode="none"))
+                mesh = meshmod.make_mesh(n_time, n_channel, places)
+                step, init_fn = shmod.build_sharded_step(cfg, mesh)
+                if step.replicated_analysis:  # the alignment above rules it out
+                    raise RuntimeError("the sharded PFB gear fell back to replicated analysis")
+                state, carry = init_fn()
+                if src.kind == "filesource":
+                    feeder = hostfeed.ShardedSdriqFeeder(src.file_path, mesh, block)
+                    read_block = feeder.block
+                elif src.kind == "testsource":
+                    tcfg = testsource.TestSourceConfig(
+                        sample_rate=src.sample_rate, carrier_freq=src.carrier_freq,
+                        modulation=src.modulation, tone_freq=src.tone_freq,
+                        amplitude=src.amplitude)
+
+                    def read_block(b, _block=block, _cfg=tcfg, _mesh=mesh):
+                        return hostfeed.shard_block(
+                            _mesh, _block, b, lambda start, count: testsource.to_iq_int16(
+                                testsource.generate(_cfg, count, start_sample=start)))
+                else:
+                    raise ValueError(f"sharded device sets support filesource/testsource, "
+                                     f"not {src.kind!r}")
+                spec_alpha = 1.0 / max(1, int(src.spectrum_averaging_n))
+                block_seconds = block / src.sample_rate
+                while not self._stop.is_set():
+                    if run_blocks and pos_blocks >= run_blocks:
+                        self._stop.set()  # play once: every process stops here
+                        return
+                    with self._lock:
+                        if self._gen != gen:
+                            break  # a static change: rebuild between blocks
+                        raw_offsets = [np.asarray([self.channels[i].frequency_offset
+                                                   for i in idxs], np.float32)
+                                       for idxs in chmap]
+                    t0 = time.perf_counter()
+                    t_start = t0 if t_start is None else t_start
+                    row_orders = None
+                    if a2a:
+                        # placement by grid chunk; a retune that no longer
+                        # balances over the shards falls back to the
+                        # all-gather gear for the rest of the generation
+                        try:
+                            orders, local_idx, residuals = shmod.a2a_placement(cfg, raw_offsets)
+                        except ValueError as e:
+                            with self._lock:
+                                self._a2a_fallback_gen = self._gen
+                            _log.warning("a2a placement failed after retune (%s); falling "
+                                         "back to the all_gather gear", e)
+                            break  # rebuild (same generation, a2a off)
+                        state, audio, carry, spec = step(
+                            state, read_block(pos_blocks), carry, tuple(residuals),
+                            tuple(local_idx))
+                        row_orders = orders  # audio row r = channel orders[g][r]
+                    elif pfb_m:
+                        split = [shmod.grid_split(cfg, o) for o in raw_offsets]
+                        state, audio, carry, spec = step(
+                            state, read_block(pos_blocks), carry,
+                            tuple(r for _, r in split), tuple(i for i, _ in split))
+                    else:
+                        state, audio, carry, spec = step(
+                            state, read_block(pos_blocks), carry, tuple(raw_offsets))
+                    audios = [a.cpu().numpy() for a in (audio if isinstance(audio, tuple)
+                                                        else (audio,))]
+                    frame = spec.cpu().numpy()
+                    self._publish_sharded(audios, step.rows, chmap, egress, gen, row_orders)
+                    # the spectrum tap: the step's unaveraged frame, the EMA here
+                    with self._lock:
+                        if (src.spectrum_averaging == "moving" and self.spectrum is not None
+                                and len(self.spectrum) == len(frame)):
+                            frame = (1.0 - spec_alpha) * self.spectrum + spec_alpha * frame
+                        self.spectrum = frame
+                        self.waterfall.append(frame)
+                        del self.waterfall[:-self.waterfall_keep]
+                    signal_s += block_seconds
+                    self.elapsed_s = time.perf_counter() - t_start
+                    self.realtime_factor = signal_s / max(self.elapsed_s, 1e-9)
+                    pos_blocks += 1
+                    dt = time.perf_counter() - t0
+                    if throttle and dt < block_seconds:
+                        time.sleep(block_seconds - dt)
+        except Exception as e:  # StError (dspdevicesourceengine.h:28)
+            self.error = f"{type(e).__name__}: {e}"
+        finally:
+            egress.close()
+
+    def _publish_sharded(self, audios: list, rows: tuple, chmap: list, egress: _Egress,
+                         gen: int, row_orders=None) -> None:
+        """One sharded block's rows held by this process into the channels'
+        reports, audio buffers, WAV files and UDP/RTP sinks. rows[g] are the
+        bank rows of audios[g]; with the a2a gear a row is a placement slot,
+        row_orders[g][row] the group's channel position. A block computed
+        before a channel layout change publishes nothing."""
+        with self._lock:
+            if self._gen != gen:
+                return
+            for g, audio in enumerate(audios):
+                for row, a in zip(rows[g], audio):
+                    pos = int(row_orders[g][row]) if row_orders is not None else int(row)
+                    ch = self.channels[chmap[g][pos]]
+                    # the bank returns no magsq: the audio's power stands in
+                    ch.channel_power_db = float(
+                        10.0 * np.log10(max(float((a * a).mean()), 1e-12)))
+                    ch.squelch = bool(np.abs(a).max() > 1e-4)
+                    ch.audio_samples += a.shape[-1]
+                    ch.audio.append(a)
+                    del ch.audio[:-self.audio_keep_blocks]
+                    for w in egress.wav.get(id(ch), (None, ()))[1]:
+                        w.writeframes(np.clip(a * 32768.0, -32768, 32767).astype(np.int16)
+                                      .tobytes())
+                    for sink in egress.net.get(id(ch), (None, ()))[1]:
+                        sink.write(a)
+            self.blocks_processed += 1
 
     def drain_audio(self, channel: int) -> np.ndarray:
         with self._lock:
@@ -1277,6 +1496,7 @@ class Session:
             "state": "error" if ds.error else ("running" if ds.running else "idle"),
             "error": ds.error,
             "realtimeFactor": round(ds.realtime_factor, 2),
+            "a2aFallback": bool(getattr(ds, "a2a_fallback", False)),
             "direction": ds.direction,
             "source": dataclasses.asdict(device_settings(ds)),
             "channelcount": len(ds.channels),
@@ -1314,8 +1534,8 @@ class Session:
 
     def load_preset(self, group: str, name: str) -> None:
         """Replace the device sets with the preset's. The whole preset is
-        checked first, so one that names a part not ported yet (a sharded
-        source) raises and leaves the running instance as it was."""
+        checked first, so one that names an unknown kind raises and leaves
+        the running instance as it was."""
         preset = migrate_preset(self.presets[f"{group}/{name}"])
         plan = []
         for entry in preset["deviceSets"]:

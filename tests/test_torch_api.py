@@ -2,8 +2,8 @@
 on a CPU session: the Rx and Tx cases of tests/test_api.py and the cases of
 tests/test_live_settings.py, the route ↔ document checks of
 tests/test_openapi.py, the data channels' route and reports against the
-JAX server, UDP/RTP audio egress, afUdp ingest and the reference presets
-against the JAX server's answers, and the 501 of every part not ported yet.
+JAX server, UDP/RTP audio egress, afUdp ingest, the reference presets and
+the sharded source's settings against the JAX server's answers.
 
 Sources are the testsource at 192 kS/s (65,536-sample blocks, 16,384 audio
 samples each) or small captures; every run ends by `run_blocks` or a stop.
@@ -501,26 +501,53 @@ def test_api_bearer_token():
         srv.server_close()
 
 
-# -- parts not ported yet: 501 with the ROADMAP item -------------------------------------
+# -- the sharded source's settings over HTTP ---------------------------------------------
 
-_LEFT_OUT = {
-    "sharded": ("/sdrangel/deviceset/0/device/settings", "PATCH", {"sharded": True}, "item 9"),
-    "mesh": ("/sdrangel/deviceset/0/device/settings", "PATCH", {"mesh_time": 4}, "item 9"),
+#: PATCH bodies of the device settings that answered 501 while the mesh gears
+#: were left out
+_SHARDED_PATCHES = {
+    "sharded": {"sharded": True},
+    "mesh": {"mesh_time": 4},
+    "mesh_channel": {"mesh_channel": 2, "sharded_block": 1 << 15},
+    "pfb": {"sharded_pfb_m": 8, "sharded_pfb_a2a": True},
+    "wrong_type": {"mesh_time": "4"},
 }
 
 
-@pytest.mark.parametrize("case", sorted(_LEFT_OUT))
-def test_left_out_parts_answer_501(api, tmp_path, case):
-    base, session = api
-    session.preset_dir = str(tmp_path)
+def _sharded_patch_outcome(base, case):
     _req(base, "/sdrangel/devicesets", "POST")
     _req(base, "/sdrangel/deviceset/0/channel", "POST", {"channelType": NFM})
-    _req(base, "/sdrangel/preset", "POST", {"groupName": "g", "name": "p"})
-    path, method, body, item = _LEFT_OUT[case]
-    code, reply = _req(base, path, method, body)
-    assert code == 501, reply
-    assert f"ROADMAP.md queue 1, {item}" in reply["message"]
-    assert len(session.device_sets) == 1 and len(session.device_sets[0].channels) == 1
+    code, _ = _req(base, "/sdrangel/deviceset/0/device/settings", "PATCH",
+                   _SHARDED_PATCHES[case])
+    _, settings = _req(base, "/sdrangel/deviceset/0/device/settings")
+    _, summary = _req(base, "/sdrangel")
+    names = ("sharded", "mesh_time", "mesh_channel", "sharded_block", "sharded_pfb_m",
+             "sharded_pfb_a2a")
+    return (code, {k: settings[k] for k in names},
+            summary["devicesetlist"]["deviceSets"][0]["a2aFallback"])
+
+
+@pytest.mark.parametrize("case", sorted(_SHARDED_PATCHES))
+def test_sharded_settings_patch_as_jax(api, case):
+    """Each PATCH answers as the JAX server does: the same status, the same
+    device settings after it, the device set's a2aFallback report."""
+    from sdrangel_tpu.api.server import make_server as jax_make_server
+    from sdrangel_tpu.runtime.session import Session as JaxSession
+
+    base, session = api
+    jax_session = JaxSession()
+    jsrv = jax_make_server(jax_session, "127.0.0.1", 0)
+    threading.Thread(target=jsrv.serve_forever, kwargs={"poll_interval": 0.05},
+                     daemon=True).start()
+    try:
+        want = _sharded_patch_outcome(f"http://127.0.0.1:{jsrv.server_address[1]}", case)
+        got = _sharded_patch_outcome(base, case)
+    finally:
+        jax_session.shutdown()
+        jsrv.shutdown()
+        jsrv.server_close()
+    assert got == want
+    assert want[0] == (400 if case == "wrong_type" else 200) and want[2] is False
 
 
 # -- UDP/RTP egress, afUdp ingest and the reference presets over HTTP ---------------------

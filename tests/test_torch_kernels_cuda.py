@@ -664,3 +664,56 @@ def test_fftcorr_on_card_matches_cpu(cuda_device):
             states[d], out[d] = fftcorr.correlate_block(states[d], t(a).to(d), t(b).to(d), 1024)
         want = n(out["cpu"])
         np.testing.assert_allclose(n(out["cuda"]), want, atol=ATOL * np.abs(want).max())
+
+
+_MESH_GEARS = {  # (config kwargs, per-channel offsets, the FM carrier Hz)
+    "cen": (dict(n_channels=8), [30_000.0] * 8, 30_000.0),
+    "inf": (dict(n_channels=8, fc_pos="inf"), [2_000.0] * 8, -1_536_000.0 + 2_000.0),
+    "pfb": (dict(n_channels=8, pfb_m=8), [390_000.0] * 8, 390_000.0),
+    "a2a": (dict(n_channels=8, pfb_m=8, pfb_all_to_all=True),
+            [(g if g < 4 else g - 8) * 192_000.0 + 300.0 for g in range(8)], 192_300.0),
+}
+
+
+@pytest.mark.parametrize("gear", sorted(_MESH_GEARS))
+def test_mesh_gear_on_card_matches_cpu_mesh(cuda_device, gear):
+    """A 2×2 mesh of four shards of the card against the same mesh of CPU
+    shards (the kernels' plain versions) over 3 blocks at ÷8: ≥ 80 dB per
+    channel and block, K1-TC (cen) or K1 (inf) once per shard and block."""
+    from sdrangel_tpu_torch.parallel import mesh as pmesh
+    from sdrangel_tpu_torch.parallel import sharded
+
+    kw, offs, carrier = _MESH_GEARS[gear]
+    cfg = sharded.ShardedPipelineConfig(n_time=2, n_channel=2, log2_decim=3, block=1 << 15,
+                                        **kw)
+    src = testsource.TestSourceConfig(sample_rate=cfg.device_rate, carrier_freq=carrier,
+                                      modulation="fm", tone_freq=700.0, fm_deviation=4000.0,
+                                      amplitude=0.4)
+    raws = testsource.to_iq_int16(testsource.generate(src, 3 * cfg.block)).reshape(3, -1, 2)
+    if cfg.pfb_all_to_all:
+        _, idx, res = sharded.a2a_placement(cfg, [np.asarray(offs)])
+        args = [t(res[0]), t(idx[0])]
+    elif cfg.pfb_m:
+        idx, res = sharded.grid_split(cfg, np.asarray(offs))
+        args = [t(res), t(idx)]
+    else:
+        args = [t(np.asarray(offs, np.float32))]
+    runs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        step, init_fn = sharded.build_sharded_step(cfg, pmesh.make_mesh(2, 2, [dev] * 4))
+        state, carry = init_fn()
+        counter = flat_decimate if gear == "inf" else flat_decimate_tc
+        launches = counter.launches
+        audio = []
+        for raw in raws:
+            state, a, carry = step(state, t(raw).to(dev), carry, *[v.to(dev) for v in args])
+            audio.append(n(a))
+        runs[dev.type] = (audio, counter.launches - launches)
+    assert runs["cuda"][1] == 4 * 3 and runs["cpu"][1] == 0
+    for b, (got, want) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
+        assert np.abs(want).max() > 0.01, f"block {b}: silent"
+        for c in range(8):
+            if np.any(want[c] != 0.0):
+                assert agreement_db(want[c], got[c]) >= 80.0, f"block {b} channel {c}"
+            else:  # a grid channel with no carrier: squelched on both
+                assert np.abs(got[c]).max() < 1e-6, f"block {b} channel {c}"

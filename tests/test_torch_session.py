@@ -14,9 +14,9 @@ JAX session, and the parts of it the JAX package lacks.
 - The two repairs: the read-back stays one block behind at publish_every=1,
   and a generation bump publishes the pending burst (only the part of a
   removed channel is dropped).
-- The sharded source raises NotImplementedError naming its ROADMAP item;
-  the requests that named UDP/RTP or the reference presets while they were
-  left out answer as the JAX session does. The kernel build runs nvcc once
+- The sharded source's settings, and the requests that named UDP/RTP or
+  the reference presets while they were left out, answer as the JAX
+  session does. The kernel build runs nvcc once
   for many threads.
 """
 
@@ -301,15 +301,34 @@ def test_generation_bump_drops_only_a_removed_channel(monkeypatch):
     assert removed.audio_samples == 0 and removed.audio == []
 
 
-@pytest.mark.parametrize("case", ["sharded"])
-def test_left_out_parts_raise_with_their_roadmap_item(tmp_path, case):
-    s = psession.Session(device=CPU, preset_dir=str(tmp_path))
-    ds = s.add_device_set()
-    actions = {"sharded": lambda: ds.update_source({"sharded": True})}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 9"):
-        actions[case]()
-    assert len(s.device_sets) == 1 and s.device_sets[0] is ds  # nothing was replaced
-    assert ds.channels == [] and not ds.source.file_path
+#: the sharded source's settings, each with a value and a value of the wrong type
+_SHARDED_SETTINGS = {"sharded": (True, 1), "mesh_time": (4, 4.0), "mesh_channel": (2, "2"),
+                     "sharded_block": (1 << 15, True), "sharded_pfb_m": (8, 8.5),
+                     "sharded_pfb_a2a": (True, "yes")}
+
+
+@pytest.mark.parametrize("name", sorted(_SHARDED_SETTINGS))
+def test_sharded_settings_apply_as_jax(tmp_path, name):
+    """Each setting of the sharded source, which raised while the mesh gears
+    were left out, applies as the JAX session applies it: the value set, a
+    static change (the generation moves), a wrong type refused, the preset
+    carrying it."""
+    from sdrangel_tpu.runtime.session import Session as JaxSession
+
+    value, wrong = _SHARDED_SETTINGS[name]
+    outcomes = []
+    for s in (psession.Session(device=CPU, preset_dir=str(tmp_path)), JaxSession()):
+        ds = s.add_device_set()
+        gen = ds._gen
+        ds.update_source({name: value})
+        with pytest.raises(ValueError, match=name):
+            ds.update_source({name: wrong})
+        s.save_preset("g", "p")
+        s.load_preset("g", "p")
+        outcomes.append((getattr(ds.source, name), ds._gen - gen,
+                         s.presets["g/p"]["deviceSets"][0]["source"][name],
+                         getattr(s.device_sets[0].source, name)))
+    assert outcomes[0] == outcomes[1] == (value, 1, value, value)
 
 
 def _session_actions(s, ds, tmp_path):

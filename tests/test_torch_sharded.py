@@ -173,14 +173,22 @@ def test_helpers_match_jax():
 
 
 def test_what_one_card_does_not_run_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 9"):
+    """What is left to refuse raises as JAX's gear does: a mesh larger than
+    the devices given, the all-to-all gear without a grid, an unknown kind,
+    and cuda without a card."""
+    one = [jax.devices()[0]]
+    with pytest.raises(ValueError, match="need 2 devices, have 1"):
+        jsh.build_sharded_step(jsh.ShardedPipelineConfig(n_time=2, n_channel=1, **BASE),
+                               jsh.make_mesh(2, 1, one))
+    with pytest.raises(ValueError, match="need 2 devices, have 1"):
         psh.build_sharded_step(psh.ShardedPipelineConfig(n_time=2, n_channel=1, **BASE), CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 9"):
-        psh.build_sharded_step(psh.ShardedPipelineConfig(
-            n_time=1, n_channel=1, pfb_all_to_all=True, pfb_m=4, **BASE), CPU)
-    with pytest.raises(ValueError, match="unknown channel kind"):
-        psh.build_sharded_step(psh.ShardedPipelineConfig(
-            n_time=1, n_channel=1, bank=(psh.BankGroup("sdrangel.channel.nope", 2),)), CPU)
+    for sh, mesh in ((jsh, jsh.make_mesh(1, 1, one)), (psh, CPU)):
+        with pytest.raises(ValueError, match="pfb_all_to_all requires pfb_m"):
+            sh.build_sharded_step(sh.ShardedPipelineConfig(
+                n_time=1, n_channel=1, pfb_all_to_all=True, **BASE), mesh)
+        with pytest.raises(ValueError, match="unknown channel kind"):
+            sh.build_sharded_step(sh.ShardedPipelineConfig(
+                n_time=1, n_channel=1, bank=(sh.BankGroup("sdrangel.channel.nope", 2),)), mesh)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             psh.build_sharded_step(psh.ShardedPipelineConfig(n_time=1, n_channel=1, **BASE))

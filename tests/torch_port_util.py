@@ -100,3 +100,27 @@ def code_without_docstrings(path: pathlib.Path) -> str:
                     and isinstance(body[0].value.value, str)):
                 node.body = body[1:] or [ast.Pass()]
     return ast.dump(tree)
+
+
+def stop_orphaned_jax_device_sets() -> int:
+    """Stop every JAX-package device set still running in this process.
+
+    XLA's CPU collectives need all of a mesh's device threads at once: a
+    JAX worker thread left running by an earlier test in the same process
+    (tests/test_api.py::test_tx_device_set_flow leaves its Tx set running)
+    starves one participant, and the rendezvous aborts the process after
+    40 s. Tests that run JAX programs across the 8 virtual devices call this
+    first; the sets it finds belong to tests that have finished."""
+    import gc
+    import sys
+
+    jsession = sys.modules.get("sdrangel_tpu.runtime.session")
+    if jsession is None:
+        return 0
+    kinds = (jsession.DeviceSet, jsession.TxDeviceSet)
+    # type() rather than isinstance(): the latter reads __class__, which
+    # wakes deprecation shims living in the heap
+    running = [o for o in gc.get_objects() if type(o) in kinds and o.running]
+    for ds in running:
+        ds.stop()
+    return len(running)
