@@ -1,7 +1,7 @@
 """Drive the PyTorch port's Rx product path, its channel-bank gear, its
 receivers, Tx, data channels, DATV and daemon transport, RDS, network
-egress and ingest, reference presets, library and mesh gears once on one
-CUDA card.
+egress and ingest, reference presets, library, mesh gears and every capture
+format and placement once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -221,6 +221,31 @@ power limit as nvidia-smi reports them):
          run_blocks 3), then the same with sharded_pfb_a2a: each channel's
          WAV what the direct step's audio quantizes to within 1e-6, the
          report's realtimeFactor and a2aFallback.
+  14. the configurations no earlier phase runs (no kernel of their own; K1
+     or K1-TC in front):
+     (a) RxPipeline at 10 MS/s ÷64, NFM +20 kHz, 4 blocks of 10,240,000 of
+         phase 3's FM made on the card (checked within 1 LSB of phase 3's
+         block 0) as an RTL-SDR u8, a HackRF i8, a 12-bit and a 24-bit
+         capture, as i16 with 5 % DC, gain and phase faults through the DC
+         and IQ correction, and as i16 at fc_pos inf and sup with the
+         carrier in the passband the placement schedule selects (∓fs/64):
+         K1 once per block in its f32 real or complex-leg form, the tone
+         above 25 dB, ≥ 80 dB against the CPU pipeline on 2 blocks; ms/block
+         after one warm-up block, and the upload alone;
+     (b) (a)'s u8 and i8 blocks as raw cu8 and cs8 captures and its i24
+         blocks as a 24-bit .sdriq (streamed, then preloaded) through a
+         cuda Session served in this process, run to idle over HTTP: K1
+         once per block, each WAV what RxPipeline.run's audio quantizes to
+         within 1e-6, the preloaded audio equal to the streamed; then `demod
+         --device cuda --in` (in-process) on a 24-bit capture of the inf
+         signal with --fc-pos inf --iq-correction against RxPipeline.run;
+     (c) phase 5's gear on a 1x1 mesh at fc_pos=sup (phase 5's blocks moved
+         up by fs/64 on the card) and with chan_stages=2 in place of the PFB
+         (moved so demod 6's carrier sits in the centre 48 kHz), each against
+         the same gear on the kernel's plain version (≥ 80 dB per block), K1's
+         complex legs or K1-TC once per block, the tone above 25 dB.
+     `python3 chip_smoke.py --phase 14` runs phase 14 alone, phase 3's first
+     block and phase 5's blocks made anew, and prints no kernels or ok line.
 Then a JSON line of the kernels, and last the ok line. Any failed check
 raises: the script then exits non-zero and prints no ok line. It needs a
 card; without one it exits non-zero at once.
@@ -228,6 +253,7 @@ card; without one it exits non-zero at once.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import io
@@ -289,6 +315,7 @@ from sdrangel_tpu_torch.dsp import interpolators as interp
 from sdrangel_tpu_torch.dsp import phaselock
 from sdrangel_tpu_torch.dsp import scope as dsp_scope
 from sdrangel_tpu_torch.dsp import spectrum as dsp_spectrum
+from sdrangel_tpu_torch.dsp.types import complex_to_iq_raw
 from sdrangel_tpu_torch.runtime.engine import (
     ChannelSpec,
     DeviceConfig,
@@ -3513,7 +3540,330 @@ def phase_mesh(dev: torch.device, xs: list[torch.Tensor], tag: str) -> dict:
     return {"launches": launches, "ms": ms, "session": reports}
 
 
+# -- phase 14: the capture formats, the corrections and inf/sup at the product
+#    block, and the gear at sup and with chan_stages -----------------------------
+
+FORMAT_BLOCKS = 4
+FORMAT_CPU_BLOCKS = 2
+#: (name, DeviceConfig fields, the K1 form its path launches); every one of
+#: them leaves the fused i16 ingest for the non-fused branch of RxPipeline.step
+FORMAT_CONFIGS = (
+    ("u8", {"input_format": "u8"}, "f32 real"),  # RTL-SDR
+    ("i8", {"input_format": "i8"}, "f32 real"),  # HackRF
+    ("i12", {"input_format": "i12"}, "f32 real"),  # Airspy, PlutoSDR
+    ("i24", {"input_format": "i24"}, "f32 real"),  # 24-bit .sdriq
+    ("i16 dc_iq", {"dc_correction": True, "iq_correction": True}, "f32 real"),
+    ("i16 inf", {"fc_pos": "inf"}, "f32 complex"),
+    ("i16 sup", {"fc_pos": "sup"}, "f32 complex"),
+)
+#: the front end's faults for the corrections to remove: DC on I, I's gain
+#: and Q leaking into I (testsource's impairments), each 5 % of full scale
+IMPAIRMENTS = {"dc_factor": 0.05, "i_factor": 0.05, "phase_imbalance": 0.05}
+CHAN_STAGES = 2  # bench.py -t chain's depth: a 48 kHz channel of the 192 kHz baseband
+
+
+def placement_centre(log2_decim: int, fc_pos: str, rate: float) -> float:
+    """The centre (Hz) of the band that a placement brings to DC, read off
+    decimators.placement_schedule: stage m's ±fs/4 rotation, pulled to the
+    input, moves the spectrum by s_m·rate/2^(m+2), and the band at minus
+    their sum lands at DC."""
+    signs = dec.placement_schedule(log2_decim, fc_pos)
+    return -sum(s * rate / (4 << m) for m, s in enumerate(signs))
+
+
+def card_fm(dev: torch.device, block: int, index: int, rate: float, carrier: float,
+            amplitude: float = 0.5, dc_factor: float = 0.0, i_factor: float = 0.0,
+            phase_imbalance: float = 0.0) -> torch.Tensor:
+    """Block `index` of testsource's FM (1 kHz tone, 5 kHz deviation) at
+    `carrier`, its impairments included, made on the card in float64:
+    (block,) complex128."""
+    t = (index * block + torch.arange(block, dtype=torch.float64, device=dev)) / rate
+    phase = 2 * np.pi * carrier * t - 5000.0 / 1000.0 * torch.cos(2 * np.pi * 1000.0 * t)
+    re = torch.cos(phase) * amplitude * (1.0 + i_factor)
+    im = torch.sin(phase) * amplitude + phase_imbalance * re
+    return torch.complex(re + dc_factor * amplitude, im)
+
+
+def rotated(x: torch.Tensor, freq: float, rate: float, start: int) -> torch.Tensor:
+    """The int16 capture block x (samples from `start` of the stream) moved
+    by `freq` Hz, requantized: x·e^{j2π·freq·n/rate}, the phase in float64."""
+    n = start + torch.arange(x.shape[0], dtype=torch.float64, device=x.device)
+    turns = torch.remainder(n * (freq / rate), 1.0)
+    c = torch.complex(x[:, 0].double(), x[:, 1].double()) / 32768.0
+    return complex_to_iq_raw(c * torch.polar(torch.ones_like(turns), 2 * np.pi * turns), "i16")
+
+
+def reset_k1_counts() -> None:
+    reset_counts()
+    flat_decimate.form_launches = dict.fromkeys(k1_kernel.FORMS, 0)
+
+
+def upload_ms(pipe: RxPipeline, blocks: list[np.ndarray]) -> list[float]:
+    """Mean host ms of `RxPipeline.upload` a block (a pinned copy, the H2D),
+    synchronized after each of two passes over the blocks: a pass that
+    needs more pinned buffers of the block's size than the caching host
+    allocator holds pays for their allocation."""
+    out = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in blocks:
+            pipe.upload(b)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / len(blocks) * 1e3)
+    return out
+
+
+def phase_formats(dev: torch.device, product_blocks: list[np.ndarray], tag: str) -> dict:
+    """14a: RxPipeline on the card at 10 MS/s ÷64 NFM +20 kHz, phase 3's FM
+    signal quantized to each capture format, corrected, or moved into the
+    inf/sup passband; each against the CPU pipeline."""
+    chans = [ChannelSpec(NFM, 20_000.0, {"squelch_db": -60.0})]
+    first = complex_to_iq_raw(card_fm(dev, PRODUCT_BLOCK, 0, PRODUCT_RATE, 20_000.0), "i16")
+    lsb = int((first.int() - torch.from_numpy(product_blocks[0]).to(dev).int()).abs().max())
+    check(lsb <= 1, f"14a: the card's FM is {lsb} LSB from phase 3's block 0")
+    out = {"launches": {}, "ms": {}, "upload_ms": {}, "audio": {}, "blocks": {}}
+    for name, fields, form in FORMAT_CONFIGS:
+        fmt, fc_pos = fields.get("input_format", "i16"), fields.get("fc_pos", "cen")
+        carrier = 20_000.0
+        if fc_pos != "cen":
+            centre = placement_centre(6, fc_pos, PRODUCT_RATE)
+            check(centre == {"inf": -1, "sup": 1}[fc_pos] * PRODUCT_RATE / 64,
+                  f"14a {name}: the placement's centre {centre} Hz is not ∓fs/64")
+            carrier += centre
+        impair = IMPAIRMENTS if fields.get("dc_correction") else {}
+        t0 = time.perf_counter()
+        blocks = [complex_to_iq_raw(card_fm(dev, PRODUCT_BLOCK, b, PRODUCT_RATE, carrier,
+                                            **impair), fmt).cpu().numpy()
+                  for b in range(FORMAT_BLOCKS)]
+        made_s = time.perf_counter() - t0
+        cfg = DeviceConfig(PRODUCT_RATE, log2_decim=6, **fields)
+        pipe = RxPipeline(cfg, chans, dev)
+        check(pipe.device_block == PRODUCT_BLOCK and not pipe.fused_ingest,
+              f"14a {name}: block {pipe.device_block}, fused {pipe.fused_ingest}")
+        list(pipe.run(lambda b, n: blocks[b], 1))  # warm-up: this configuration's shapes
+        reset_k1_counts()
+        audio, elapsed = run_product(pipe, blocks)
+        launches, total = dict(flat_decimate.form_launches), flat_decimate.launches
+        check(launches[form] == FORMAT_BLOCKS == total and flat_decimate_tc.launches == 0,
+              f"14a {name}: K1 launches by form {launches}, K1-TC {flat_decimate_tc.launches}, "
+              f"for {FORMAT_BLOCKS} blocks")
+        per_block = pipe.demod_cfgs[0].resampler_plan.block_out
+        check(audio.shape == (FORMAT_BLOCKS * per_block,) and bool(np.isfinite(audio).all()),
+              f"14a {name}: audio {audio.shape}")
+        snr = tone_snr(audio[len(audio) // 2:].astype(np.float64), 1000.0, 48_000.0)
+        check(snr > 25.0, f"14a {name}: tone SNR {snr:.1f} dB")
+        up_ms = upload_ms(pipe, blocks)  # before the CPU run, whose threads share the host
+        cpu_pipe = RxPipeline(cfg, chans, "cpu")
+        t0 = time.perf_counter()
+        cpu_audio = np.concatenate([o["channels"][0]["audio"] for _, o in cpu_pipe.run(
+            lambda b, n: blocks[b], FORMAT_CPU_BLOCKS)])
+        cpu_s = time.perf_counter() - t0
+        cpu_agree = agreement_db(cpu_audio, audio[:FORMAT_CPU_BLOCKS * per_block])
+        check(cpu_agree >= 80.0, f"14a {name}: card vs CPU pipeline {cpu_agree:.1f} dB")
+        ms = elapsed / FORMAT_BLOCKS * 1e3
+        out["launches"][name], out["ms"][name], out["upload_ms"][name] = launches[form], ms, up_ms
+        out["audio"][name], out["blocks"][name] = audio, blocks
+        print(f"phase 14a formats ({name}): 10 MS/s {fmt} ({blocks[0].dtype}, "
+              f"{blocks[0].nbytes / 1e6:.1f} MB a block) /64 {fc_pos}"
+              f"{' DC+IQ corrected' if impair else ''}, NFM +20 kHz, carrier {carrier:.1f} Hz: "
+              f"{FORMAT_BLOCKS} blocks of {PRODUCT_BLOCK} at {ms:.3f} ms/block (host clock "
+              f"around a synchronize, upload included, after 1 warm-up block), real-time factor "
+              f"{PRODUCT_BLOCK / PRODUCT_RATE / (ms / 1e3):.2f}; the upload alone "
+              f"{up_ms[0]:.3f} / {up_ms[1]:.3f} ms/block (two passes); K1 {form} {launches[form]} launches of {total} "
+              f"(by form {launches}); tone SNR {snr:.2f} dB; card vs CPU pipeline on "
+              f"{FORMAT_CPU_BLOCKS} blocks {cpu_agree:.2f} dB (CPU run {cpu_s:.1f} s); blocks "
+              f"made on the card in {made_s:.2f} s (set-up) [{tag}]", flush=True)
+    return out
+
+
+def phase_format_sessions(dev: torch.device, formats: dict, tag: str) -> dict:
+    """14b: raw cu8 and cs8 captures and a 24-bit .sdriq (streamed and
+    preloaded) through a cuda Session over HTTP, then `demod --in` on a 24-bit
+    capture at fc_pos inf with IQ correction."""
+    launches = {}
+    session = Session(device=DEVICE)
+    srv, base = serve(session)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = {}
+            for ext, name in (("cu8", "u8"), ("cs8", "i8")):
+                paths[ext] = os.path.join(tmp, f"capture.{ext}")
+                with open(paths[ext], "wb") as f:
+                    for b in formats["blocks"][name]:
+                        f.write(b.tobytes())
+            paths["sdriq24"] = os.path.join(tmp, "capture24.sdriq")
+            writer = sdriq.SdriqWriter(paths["sdriq24"], sample_rate=int(PRODUCT_RATE),
+                                       sample_size=24)
+            for b in formats["blocks"]["i24"]:
+                writer.write(b)
+            writer.close()
+            pcm_by_run = {}
+            runs = (("cu8", "u8", False), ("cs8", "i8", False), ("sdriq24", "i24", False),
+                    ("sdriq24", "i24", True))
+            for i, (kind, name, preload) in enumerate(runs):
+                what = f"14b {kind}{' preloaded' if preload else ''}"
+                code, reply = http(base, "/sdrangel/devicesets", "POST")
+                check(code == 201 and reply["index"] == i, f"{what}: add device set {reply}")
+                settings = {"kind": "filesource", "file_path": paths[kind], "log2_decim": 6,
+                            "run_blocks": FORMAT_BLOCKS, "publish_every": 1,
+                            "file_preload": preload}
+                if kind != "sdriq24":  # a raw capture has no header: its rate is a setting
+                    settings["sample_rate"] = PRODUCT_RATE
+                code, reply = http(base, f"/sdrangel/deviceset/{i}/device/settings", "PATCH",
+                                   settings)
+                check(code == 200, f"{what}: device settings {reply}")
+                code, reply = http(base, f"/sdrangel/deviceset/{i}/channel", "POST", {
+                    "channelType": NFM, "inputFrequencyOffset": 20_000.0, "squelch_db": -60.0})
+                check(code == 201, f"{what}: add channel {reply}")
+                reset_k1_counts()
+                wall = run_to_idle(base, what, i)
+                form_launches = dict(flat_decimate.form_launches)
+                _, device = http(base, f"/sdrangel/deviceset/{i}/device/report")
+                code, data = http(base, f"/sdrangel/deviceset/{i}/channel/0/audio")
+                check(code == 200, f"{what}: audio {data}")
+                with wave.open(io.BytesIO(data)) as w:
+                    pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+                ref = formats["audio"][name]
+                check(device["blocksProcessed"] == FORMAT_BLOCKS
+                      and form_launches["f32 real"] == FORMAT_BLOCKS == flat_decimate.launches,
+                      f"{what}: {device['blocksProcessed']} blocks, K1 by form {form_launches}")
+                check(pcm_agrees(pcm, ref), f"{what}: the WAV ({pcm.shape}) is not RxPipeline"
+                      f".run's audio ({ref.shape}) as 16-bit PCM shows it")
+                pcm_by_run[what] = pcm
+                launches[what.split(" ", 1)[1]] = form_launches["f32 real"]
+                print(f"phase 14b sessions ({what[4:]}): {FORMAT_BLOCKS} blocks of "
+                      f"{PRODUCT_BLOCK} ({name}) through a cuda Session over HTTP (the "
+                      f"Session's run {i + 1}), "
+                      f"{device['elapsedSeconds'] / FORMAT_BLOCKS * 1e3:.3f} ms/block (device "
+                      f"report), real-time factor {device['realtimeFactor']:.2f}, POST run to "
+                      f"idle {wall:.3f} s; K1 f32 real {form_launches['f32 real']} launches; the "
+                      f"WAV equal to RxPipeline.run's audio within 1e-6 as 16-bit PCM shows it, "
+                      f"{int(np.sum(pcm != np.clip(ref * 32768.0, -32768, 32767).astype(np.int16)))}"
+                      f" of {pcm.size} samples a code apart [{tag}]", flush=True)
+            equal = np.array_equal(pcm_by_run["14b sdriq24"], pcm_by_run["14b sdriq24 preloaded"])
+            check(equal, "14b: the preloaded 24-bit audio differs from the streamed")
+
+            # demod --in on a 24-bit capture of the inf signal, IQ correction on
+            fields = {"fc_pos": "inf", "iq_correction": True, "input_format": "i24"}
+            carrier = 20_000.0 + placement_centre(6, "inf", PRODUCT_RATE)
+            blocks = [complex_to_iq_raw(card_fm(dev, PRODUCT_BLOCK, b, PRODUCT_RATE, carrier,
+                                                **IMPAIRMENTS), "i24").cpu().numpy()
+                      for b in range(FORMAT_BLOCKS)]
+            path = os.path.join(tmp, "inf24.sdriq")
+            writer = sdriq.SdriqWriter(path, sample_rate=int(PRODUCT_RATE), sample_size=24)
+            for b in blocks:
+                writer.write(b)
+            writer.close()
+            pipe = RxPipeline(DeviceConfig(PRODUCT_RATE, log2_decim=6, **fields),
+                              [ChannelSpec(NFM, 20_000.0, {"squelch_db": -60.0})], dev)
+            ref, _ = run_product(pipe, blocks)
+            wav_path = os.path.join(tmp, "inf24.wav")
+            reset_k1_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(io.StringIO()):
+                code = cli_main(["demod", "--device", DEVICE, "--in", path, "--log2-decim", "6",
+                                 "--fc-pos", "inf", "--iq-correction", "--channel", "nfm:20000",
+                                 "--squelch", "-60", "--out", wav_path])
+            cli_s = time.perf_counter() - t0
+            cli = dict(flat_decimate.form_launches)
+            check(code == 0, f"14b demod --in: exit {code}")
+            data, fs = wav.read_wav(wav_path)
+            pcm = data[:, 0]
+            snr = tone_snr(pcm[len(pcm) // 2:].astype(np.float64) / 32768.0, 1000.0, fs)
+            exact = np.array_equal(pcm, np.clip(ref * 32768.0, -32768, 32767).astype(np.int16))
+            check(cli["f32 complex"] == FORMAT_BLOCKS == flat_decimate.launches,
+                  f"14b demod --in: K1 by form {cli}")
+            check(pcm_agrees(pcm, ref) and snr > 25.0,
+                  f"14b demod --in: the WAV against RxPipeline.run, tone SNR {snr:.1f} dB")
+            launches["demod --in inf24 iq"] = cli["f32 complex"]
+            print(f"phase 14b sessions: preloaded 24-bit audio equals the streamed bit for bit "
+                  f"({equal}); demod --device {DEVICE} --in on a 24-bit .sdriq of the signal at "
+                  f"{carrier:.1f} Hz, --fc-pos inf --iq-correction: exit 0 in {cli_s:.2f} s "
+                  f"in-process, K1 f32 complex {cli['f32 complex']} launches, tone SNR "
+                  f"{snr:.2f} dB, the WAV equal to RxPipeline.run's audio as 16-bit PCM "
+                  f"({'bit for bit' if exact else 'within 1e-6'}) [{tag}]", flush=True)
+    finally:
+        session.shutdown()
+        srv.shutdown()
+        srv.server_close()
+    return launches
+
+
+def phase_gear_forms(dev: torch.device, xs: list[torch.Tensor], tag: str) -> dict:
+    """14c: phase 5's gear on a 1×1 mesh at fc_pos=sup (K1's complex legs)
+    and with chan_stages (K1-TC), each against the same gear on the
+    kernel's plain version, over phase 5's blocks moved on the card."""
+    cfg1 = chainsharded_config()
+    offs = chainsharded_offsets(cfg1)
+    idx, res = sharded.grid_split(cfg1, offs)
+    grid = cfg1.baseband_rate / cfg1.pfb_m
+    centre = placement_centre(cfg1.log2_decim, "sup", cfg1.device_rate)
+    check(centre == cfg1.device_rate / 64, f"14c: the sup centre {centre} Hz is not fs/64")
+    # chan_stages keeps the centre 48 kHz: demod 6's PFB channel (its
+    # carrier at its residual, −1,440 Hz) moved to DC, every offset with it
+    shift = -(6 % 4 - 1.5) * 2 * grid
+    forms = {
+        "sup": (dataclasses.replace(cfg1, fc_pos="sup"), centre,
+                (torch.from_numpy(res).to(dev), torch.from_numpy(idx).to(dev)),
+                flat_decimate, plain_decimator, (5, 6)),
+        "chan_stages": (dataclasses.replace(cfg1, pfb_m=0, chan_stages=CHAN_STAGES), shift,
+                        (torch.from_numpy((offs + shift).astype(np.float32)).to(dev),),
+                        flat_decimate_tc, plain_tc_decimator, (6,)),
+    }
+    out = {"launches": {}, "ms": {}}
+    for name, (cfg, freq, args, counter, plain, tone_demods) in forms.items():
+        moved = [rotated(x, freq, GEAR_RATE, b * GEAR_BLOCK) for b, x in enumerate(xs)]
+        step, init_fn = sharded.build_sharded_step(cfg, dev)
+        gear_audio(step, init_fn, moved[:1], args)  # warm-up
+        with plain():
+            gear_audio(step, init_fn, moved[:1], args)
+        reset_k1_counts()
+        audio, elapsed = gear_audio(step, init_fn, moved, args)
+        launches = counter.launches
+        complex_legs = flat_decimate.form_launches["f32 complex"]
+        with plain():
+            plain_audio, plain_s = gear_audio(step, init_fn, moved, args)
+        check(launches == MESH_BLOCKS and (name != "sup" or complex_legs == MESH_BLOCKS),
+              f"14c {name}: {launches} launches of {counter.__name__} ({complex_legs} of "
+              f"K1's complex legs) in {MESH_BLOCKS} blocks")
+        check(audio.shape[0] == 16 and bool(np.isfinite(audio).all()),
+              f"14c {name}: audio {audio.shape}")
+        agree = block_agreement(plain_audio, audio)
+        check(min(agree) >= 80.0, f"14c {name}: against its plain-kernel run {agree} dB")
+        snrs = [tone_snr(audio[k, audio.shape[1] // 2:].astype(np.float64), 1000.0, 48_000.0)
+                for k in tone_demods]
+        check(min(snrs) > 25.0, f"14c {name}: tone SNR {snrs} dB")
+        ms = elapsed / MESH_BLOCKS * 1e3
+        out["launches"][name], out["ms"][name] = launches, ms
+        print(f"phase 14c gear ({name}): chainsharded {'at fc_pos=sup, the capture moved up by '
+              f'fs/64' if name == 'sup' else f'with chan_stages={CHAN_STAGES} in place of the PFB, '
+              f'the capture moved by {shift:.0f} Hz'} on the card, 1x1 mesh, phase 5's "
+              f"{MESH_BLOCKS} blocks: against the same gear on {counter.__name__}'s plain version "
+              f"{[f'{a:.2f}' for a in agree]} dB per block (bar 80); {counter.__name__} "
+              f"{launches} launches; tone SNR {[f'{s:.2f}' for s in snrs]} dB (demods "
+              f"{tone_demods}); {ms:.3f} ms/block, plain {plain_s / MESH_BLOCKS * 1e3:.3f} "
+              f"(capture resident, one run each after a warm-up block) [{tag}]", flush=True)
+    return out
+
+
+def phase_slice14(dev: torch.device, product_blocks: list[np.ndarray],
+                  gear_blocks: list[torch.Tensor], tag: str) -> dict:
+    t0 = time.perf_counter()
+    formats = phase_formats(dev, product_blocks, tag)
+    sessions = phase_format_sessions(dev, formats, tag)
+    gear = phase_gear_forms(dev, gear_blocks, tag)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s [{tag}]", flush=True)
+    return {"launches": formats["launches"], "ms": formats["ms"],
+            "upload_ms": formats["upload_ms"], "session_launches": sessions, "gear": gear}
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description="Drive the port on one CUDA card.")
+    parser.add_argument("--phase", type=int, choices=(14,), default=None,
+                        help="run only this phase (with the blocks it reuses made anew) "
+                             "and print no kernels line and no ok line")
+    only = parser.parse_args().phase
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
@@ -3530,6 +3880,15 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda}; cudnn.allow_tf32="
           f"{torch.backends.cudnn.allow_tf32} cuda.matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32} [{tag}]", flush=True)
+
+    if only == 14:  # phase 3's first block and phase 5's blocks, then phase 14
+        cfg5 = chainsharded_config()
+        offs5 = chainsharded_offsets(cfg5)
+        gear_blocks = [torch.from_numpy(b).to(dev) for b in fm_blocks(
+            3, GEAR_BLOCK, GEAR_RATE, tuple(float(offs5[k]) for k in (5, 6)), amplitude=0.35)]
+        phase_slice14(dev, fm_blocks(1, PRODUCT_BLOCK, PRODUCT_RATE, 20_000.0), gear_blocks,
+                      tag)
+        return 0
 
     info = build.build()
     regs = ptxas_summary(info.ptxas)
@@ -3587,6 +3946,7 @@ def main() -> int:
     phase_codec(tag)
     slice12 = phase_slice(dev, product_blocks, tag)
     mesh13 = phase_mesh(dev, gear_blocks, tag)
+    slice14 = phase_slice14(dev, product_blocks, gear_blocks, tag)
 
     print(tag, flush=True)
     print(json.dumps({"kernels": [{
@@ -3610,6 +3970,12 @@ def main() -> int:
         "slice12_launches": slice12["launches"],
         "flat_iq": slice12["flat_iq"],
         "mesh_launches": {"13a_2x1_inf": mesh13["launches"]["13a_2x1_inf"]},
+        "format_launches": slice14["launches"],
+        "format_ms": slice14["ms"],
+        "format_upload_ms": slice14["upload_ms"],
+        "format_session_launches": slice14["session_launches"],
+        "gear_sup": {"launches": slice14["gear"]["launches"]["sup"],
+                     "ms": slice14["gear"]["ms"]["sup"]},
     }, {
         "name": "flat_decimate_tc",
         "route": "cuda",
@@ -3625,6 +3991,8 @@ def main() -> int:
         "mesh_launches": {k: v for k, v in mesh13["launches"].items() if k != "13a_2x1_inf"},
         "mesh_ms": mesh13["ms"],
         "mesh_session": mesh13["session"],
+        "gear_chan_stages": {"launches": slice14["gear"]["launches"]["chan_stages"],
+                             "ms": slice14["gear"]["ms"]["chan_stages"]},
     }, {
         "name": "pll_scan",
         "route": "cuda",

@@ -30,6 +30,18 @@ def iq_raw_to_complex64(raw: torch.Tensor, fmt: str = "i16") -> torch.Tensor:
     return torch.complex(f[..., 0], f[..., 1])
 
 
+def complex_to_iq_raw(x: torch.Tensor, fmt: str = "i16") -> torch.Tensor:
+    """complex in [-1, 1) (..., T) -> raw I/Q (..., T, 2) in the format's
+    container, rounded to the nearest code and saturated to the ADC's range:
+    the capture an ADC of that width would have made, which
+    `iq_raw_to_complex64` reads back within half a code."""
+    dtype, offset, scale = INPUT_FORMATS[fmt]
+    lo = 0.0 if offset else -scale
+    hi = 2.0 * scale - 1.0 if offset else scale - 1.0
+    iq = torch.view_as_real(x.to(torch.complex128)) * scale + offset
+    return torch.round(iq).clamp(lo, hi).to(dtype)
+
+
 SCALE_16 = 32768.0
 
 

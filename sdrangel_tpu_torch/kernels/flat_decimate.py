@@ -29,6 +29,7 @@ from . import build
 
 SCALE_I16 = 1.0 / 32768.0
 RATIOS = (2, 4, 8, 16, 32, 64)
+FORMS = ("i16 real", "f32 real", "f32 complex")  # int16 or float32 input, real or complex legs
 
 
 def _operands(x: torch.Tensor, legs_re: torch.Tensor, legs_im: torch.Tensor | None,
@@ -134,6 +135,8 @@ def flat_decimate(
             f"({lib.sdr_cuda_error_string(err).decode()}) at r={r}, t_leg={t_leg}, "
             f"{smem_bytes(r, t_leg, bool(i16), legs_im is not None)} B of shared memory")
     flat_decimate.launches += 1
+    form = "i16 real" if i16 else ("f32 complex" if legs_im is not None else "f32 real")
+    flat_decimate.form_launches[form] += 1
     return out
 
 
@@ -152,3 +155,5 @@ def smem_bytes(r: int, t_leg: int, i16: bool = True, complex_legs: bool = False)
 
 
 flat_decimate.launches = 0  # kernel launches since the last reset
+#: the same launches by the kernel's form (input type and legs)
+flat_decimate.form_launches = dict.fromkeys(FORMS, 0)

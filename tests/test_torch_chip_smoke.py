@@ -148,3 +148,56 @@ def test_rds_capture_carries_the_subcarrier_coherent_with_the_pilot(monkeypatch)
     rds_off, _, _ = mpx_band(0.0)
     assert np.abs(np.diff(mpx[block - 8:block + 8])).max() < 0.5  # no seam at the join
     assert pilot > 100.0 and rds_on > 100.0 * rds_off
+
+
+# -- phase 14's helpers -----------------------------------------------------------------
+
+@pytest.mark.parametrize("log2,fc_pos,rate", [(6, "inf", 10e6), (6, "sup", 10e6),
+                                              (6, "sup", 12_288_000.0), (1, "inf", 768_000.0),
+                                              (3, "sup", 12_288_000.0)])
+def test_placement_centre_is_the_band_the_decimator_keeps(log2, fc_pos, rate):
+    """The centre read off the placement schedule is ∓fs/2^k (∓fs/4 at ÷2),
+    and a tone there comes out of the staged cascade at DC, in the passband
+    (the rotated cascade's stages see it near their band edge: ~0.91 at
+    ÷8 and ÷64, against a stopband under 1e-3)."""
+    from sdrangel_tpu_torch.dsp import decimators as dec
+
+    centre = cs.placement_centre(log2, fc_pos, rate)
+    assert centre == {"inf": -1, "sup": 1}[fc_pos] * rate / (1 << max(log2, 2))
+    n = (4 << log2) * 256
+    x = np.exp(2j * np.pi * centre / rate * np.arange(n)).astype(np.complex64)
+    y = dec.decimate_reference_oracle(x, log2, fc_pos)[-64:]
+    np.testing.assert_allclose(y, y[0], atol=1e-4)
+    assert 0.8 < abs(y[0]) < 1.0 + 1e-3
+
+
+def test_card_fm_is_the_test_source():
+    """card_fm on a CPU tensor is testsource.generate's FM with every
+    impairment, block by block; its i16 is to_iq_int16's within one code."""
+    from sdrangel_tpu_torch.io import testsource
+
+    rate, block = 10e6, 4096
+    for impair in ({}, cs.IMPAIRMENTS):
+        cfg = testsource.TestSourceConfig(sample_rate=rate, carrier_freq=-136_250.0,
+                                          modulation="fm", tone_freq=1000.0,
+                                          fm_deviation=5000.0, amplitude=0.5, **impair)
+        for b in (0, 3):
+            want = testsource.generate(cfg, block, start_sample=b * block)
+            got = cs.card_fm(torch.device("cpu"), block, b, rate, -136_250.0, **impair)
+            np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+            raw = cs.complex_to_iq_raw(got, "i16").numpy().astype(np.int32)
+            assert np.abs(raw - testsource.to_iq_int16(want)).max() <= 1
+
+
+def test_rotated_moves_the_capture_without_a_seam():
+    """Two blocks moved apart equal the capture moved as one, and a tone at
+    −f moves to DC."""
+    rate, block, f = 12_288_000.0, 1 << 12, 48_000.0
+    n = np.arange(2 * block)
+    c = 0.5 * np.exp(-2j * np.pi * f / rate * n)
+    x = torch.from_numpy(np.stack([np.round(c.real * 32768), np.round(c.imag * 32768)],
+                                  -1).astype(np.int16))
+    whole = cs.rotated(x, f, rate, 0)
+    parts = torch.cat([cs.rotated(x[:block], f, rate, 0), cs.rotated(x[block:], f, rate, block)])
+    assert torch.equal(whole, parts)
+    assert np.abs(whole.numpy().astype(np.int32) - [16384, 0]).max() <= 2

@@ -13,6 +13,7 @@ import torch
 
 from sdrangel_tpu_torch.dsp import decimators as pdec
 from sdrangel_tpu_torch.dsp import phaselock as ppl
+from sdrangel_tpu_torch.dsp.types import complex_to_iq_raw
 from sdrangel_tpu_torch.io import testsource
 from sdrangel_tpu_torch.kernels import decimator as kdec
 from sdrangel_tpu_torch.kernels import flat_decimate as k1
@@ -137,22 +138,41 @@ def test_k1_rejects_what_it_does_not_take(cuda_device):
         flat_decimate(good[8:], legs, tail=good[:8])
 
 
-@pytest.mark.parametrize("frontend", [{}, {"fc_pos": "inf"}])
+@pytest.mark.parametrize("frontend", [
+    pytest.param({}, id="frontend0"), pytest.param({"fc_pos": "inf"}, id="frontend1"),
+    pytest.param({"fc_pos": "sup"}, id="sup"),
+    pytest.param({"dc_correction": True, "iq_correction": True}, id="dc_iq"),
+    *(pytest.param({"input_format": f}, id=f) for f in ("u8", "i8", "i12", "i24")),
+])
 def test_pipeline_on_card_matches_cpu(cuda_device, frontend):
+    """NFM at 768 kS/s ÷2 on the card against the CPU pipeline over 3 blocks:
+    i16 at cen, inf and sup, i16 with DC and IQ correction, and the u8, i8,
+    i12 and i24 ingests; K1 once per block in the form the path takes."""
     chans = [peng.ChannelSpec("sdrangel.channel.nfmdemod", 100_000.0, {"squelch_db": -60.0})]
     cfg = peng.DeviceConfig(768_000.0, log2_decim=1, **frontend)
     gpu = peng.RxPipeline(cfg, chans, cuda_device, block_size=32_768)
     cpu = peng.RxPipeline(cfg, chans, "cpu", block_size=32_768)
+    # the inf/sup band at ÷2 is centred at ∓fs/4
+    centre = {"inf": -192_000.0, "sup": 192_000.0}.get(cfg.fc_pos, 0.0)
+    impairments = dict(dc_factor=0.05, phase_imbalance=0.05) if cfg.dc_correction else {}
     src = testsource.TestSourceConfig(
         sample_rate=768_000.0, modulation="fm", amplitude=0.4,
-        carrier_freq=100_000.0 - (192_000.0 if frontend else 0.0))
-    raw = testsource.to_iq_int16(testsource.generate(src, 3 * gpu.device_block))
+        carrier_freq=100_000.0 + centre, **impairments)
+    iq = testsource.generate(src, 3 * gpu.device_block)
+    if cfg.input_format == "i16":
+        raw = testsource.to_iq_int16(iq)
+    else:
+        raw = n(complex_to_iq_raw(t(iq), cfg.input_format))
+    form = ("i16 real" if gpu.fused_ingest else
+            "f32 complex" if cfg.fc_pos != "cen" else "f32 real")
     launches = flat_decimate.launches
+    by_form = flat_decimate.form_launches[form]
     got = [o["channels"][0]["audio"] for _, o in gpu.run(
         lambda b, c: raw[b * c:(b + 1) * c], 3)]
     want = [o["channels"][0]["audio"] for _, o in cpu.run(
         lambda b, c: raw[b * c:(b + 1) * c], 3)]
     assert flat_decimate.launches == launches + 3
+    assert flat_decimate.form_launches[form] == by_form + 3
     got, want = np.concatenate(got), np.concatenate(want)
     assert np.any(want != 0.0)
     assert agreement_db(want, got) >= 80.0
@@ -666,51 +686,88 @@ def test_fftcorr_on_card_matches_cpu(cuda_device):
         np.testing.assert_allclose(n(out["cuda"]), want, atol=ATOL * np.abs(want).max())
 
 
-_MESH_GEARS = {  # (config kwargs, per-channel offsets, the FM carrier Hz)
-    "cen": (dict(n_channels=8), [30_000.0] * 8, 30_000.0),
-    "inf": (dict(n_channels=8, fc_pos="inf"), [2_000.0] * 8, -1_536_000.0 + 2_000.0),
-    "pfb": (dict(n_channels=8, pfb_m=8), [390_000.0] * 8, 390_000.0),
+_NFM8 = ("sdrangel.channel.nfmdemod", 8, {"squelch_db": -100.0, "squelch_gate_ms": 1.0})
+_MESH_GEARS = {  # (config kwargs, per-group channel offsets, the FM carrier Hz);
+    # the names and configurations of tests/test_torch_mesh.py
+    "cen": (dict(n_channels=8), [[30_000.0] * 8], 30_000.0),
+    "inf": (dict(n_channels=8, fc_pos="inf"), [[2_000.0] * 8], -1_536_000.0 + 2_000.0),
+    "sup": (dict(n_channels=8, fc_pos="sup"), [[2_000.0] * 8], 1_536_000.0 + 2_000.0),
+    "pfb": (dict(n_channels=8, pfb_m=8), [[390_000.0] * 8], 390_000.0),
     "a2a": (dict(n_channels=8, pfb_m=8, pfb_all_to_all=True),
-            [(g if g < 4 else g - 8) * 192_000.0 + 300.0 for g in range(8)], 192_300.0),
+            [[(g if g < 4 else g - 8) * 192_000.0 + 300.0 for g in range(8)]], 192_300.0),
+    # an NFM group beside an AM group, at 768 kS/s (an AM carrier at −40 kHz added)
+    "hetero": (dict(device_rate=768_000.0, bank=(
+        ("sdrangel.channel.nfmdemod", 4, {"squelch_db": -100.0, "squelch_gate_ms": 1.0}),
+        ("sdrangel.channel.amdemod", 4, {"squelch_db": -100.0}))),
+        [[30_000.0] * 4, [-40_000.0] * 4], 30_000.0),
+    "chan_stages": (dict(bank=(_NFM8,), chan_stages=1), [[30_000.0] * 8], 30_000.0),
+    "split_on": (dict(bank=(_NFM8,), time_axis_channels=True), [[30_000.0] * 8], 30_000.0),
+    "split_off": (dict(bank=(_NFM8,), time_axis_channels=False),
+                  [list(np.linspace(-30e3, 30e3, 8))], 30_000.0),
 }
+#: gears whose first block is run on both sides but not compared: its 128
+#: audio samples lie inside the audio FIR's 150-sample delay, so the CPU's
+#: audio there stays under the silence bar (tests/test_torch_mesh.py starts
+#: these from JAX's state after two blocks)
+_MESH_WARM_UP = {"sup", "hetero", "chan_stages", "split_on", "split_off"}
 
 
 @pytest.mark.parametrize("gear", sorted(_MESH_GEARS))
 def test_mesh_gear_on_card_matches_cpu_mesh(cuda_device, gear):
     """A 2×2 mesh of four shards of the card against the same mesh of CPU
     shards (the kernels' plain versions) over 3 blocks at ÷8: ≥ 80 dB per
-    channel and block, K1-TC (cen) or K1 (inf) once per shard and block."""
+    channel and block, K1-TC (cen) or K1's complex legs (inf, sup) once per
+    shard and block."""
     from sdrangel_tpu_torch.parallel import mesh as pmesh
     from sdrangel_tpu_torch.parallel import sharded
 
     kw, offs, carrier = _MESH_GEARS[gear]
+    if "bank" in kw:
+        kw = dict(kw, bank=tuple(sharded.BankGroup(*g) for g in kw["bank"]))
     cfg = sharded.ShardedPipelineConfig(n_time=2, n_channel=2, log2_decim=3, block=1 << 15,
                                         **kw)
     src = testsource.TestSourceConfig(sample_rate=cfg.device_rate, carrier_freq=carrier,
                                       modulation="fm", tone_freq=700.0, fm_deviation=4000.0,
                                       amplitude=0.4)
-    raws = testsource.to_iq_int16(testsource.generate(src, 3 * cfg.block)).reshape(3, -1, 2)
+    n_blocks = 3 + (gear in _MESH_WARM_UP)
+    iq = testsource.generate(src, n_blocks * cfg.block)
+    if gear == "hetero":
+        iq = iq + testsource.generate(testsource.TestSourceConfig(
+            sample_rate=cfg.device_rate, carrier_freq=-40_000.0, modulation="am",
+            am_depth=0.8, amplitude=0.3), n_blocks * cfg.block)
+    raws = testsource.to_iq_int16(iq).reshape(n_blocks, -1, 2)
     if cfg.pfb_all_to_all:
-        _, idx, res = sharded.a2a_placement(cfg, [np.asarray(offs)])
+        _, idx, res = sharded.a2a_placement(cfg, [np.asarray(offs[0])])
         args = [t(res[0]), t(idx[0])]
     elif cfg.pfb_m:
-        idx, res = sharded.grid_split(cfg, np.asarray(offs))
+        idx, res = sharded.grid_split(cfg, np.asarray(offs[0]))
         args = [t(res), t(idx)]
+    elif len(offs) > 1:  # one offsets vector per group
+        args = [tuple(t(np.asarray(o, np.float32)) for o in offs)]
     else:
-        args = [t(np.asarray(offs, np.float32))]
+        args = [t(np.asarray(offs[0], np.float32))]
+
+    def to(v, dev):
+        return tuple(x.to(dev) for x in v) if isinstance(v, tuple) else v.to(dev)
+
     runs = {}
     for dev in (cuda_device, torch.device("cpu")):
         step, init_fn = sharded.build_sharded_step(cfg, pmesh.make_mesh(2, 2, [dev] * 4))
         state, carry = init_fn()
-        counter = flat_decimate if gear == "inf" else flat_decimate_tc
+        counter = flat_decimate if cfg.fc_pos != "cen" else flat_decimate_tc
         launches = counter.launches
+        complex_legs = flat_decimate.form_launches["f32 complex"]
         audio = []
         for raw in raws:
-            state, a, carry = step(state, t(raw).to(dev), carry, *[v.to(dev) for v in args])
-            audio.append(n(a))
+            state, a, carry = step(state, t(raw).to(dev), carry, *[to(v, dev) for v in args])
+            # each group's channels in turn (one group: its (8, A) audio)
+            audio.append(np.concatenate([n(g) for g in a]) if isinstance(a, tuple) else n(a))
         runs[dev.type] = (audio, counter.launches - launches)
-    assert runs["cuda"][1] == 4 * 3 and runs["cpu"][1] == 0
-    for b, (got, want) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
+        if dev.type == "cuda" and cfg.fc_pos != "cen":
+            assert flat_decimate.form_launches["f32 complex"] == complex_legs + 4 * n_blocks
+    assert runs["cuda"][1] == 4 * n_blocks and runs["cpu"][1] == 0
+    warm = n_blocks - 3
+    for b, (got, want) in enumerate(zip(runs["cuda"][0][warm:], runs["cpu"][0][warm:])):
         assert np.abs(want).max() > 0.01, f"block {b}: silent"
         for c in range(8):
             if np.any(want[c] != 0.0):

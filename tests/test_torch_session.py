@@ -5,7 +5,8 @@ JAX session, and the parts of it the JAX package lacks.
   AM channel, 4 blocks) through the port's DeviceSet on the CPU and the JAX
   DeviceSet: audio ≥ 80 dB, channel power within rtol 1e-5, the spectrum by
   f32 rounding relative to its peak (the bounds of
-  `test_torch_engine._compare_outs`), the same squelch state and block count.
+  `test_torch_engine._compare_outs`), the same squelch state and block count;
+  the same for an RTL-SDR cu8 capture and a 24-bit .sdriq.
 - Preload: the capture uploaded once and sliced equals the streaming reader
   bit for bit, for 16- and 24-bit .sdriq and a raw cu8 capture; the size
   guard refuses an oversize capture.
@@ -34,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from sdrangel_tpu_torch.dsp.types import complex_to_iq_raw
 from sdrangel_tpu_torch.io import sdriq, testsource
 from sdrangel_tpu_torch.kernels import build
 from sdrangel_tpu_torch.runtime import engine as peng
@@ -74,11 +76,35 @@ def _port_set(source, channels):
 
 
 def test_session_matches_jax_session(tmp_path):
-    from sdrangel_tpu.runtime.session import DeviceSet as JaxDeviceSet
-
     path = _capture(str(tmp_path / "cap.sdriq"), 1 << 20,
                     carriers=((20_000.0, "fm"), (-15_000.0, "am")))
-    source = {"kind": "filesource", "file_path": path, "log2_decim": 3, "run_blocks": 4}
+    _compare_with_jax_session({"kind": "filesource", "file_path": path, "log2_decim": 3,
+                               "run_blocks": 4})
+
+
+@pytest.mark.parametrize("fmt", ["cu8", "sdriq24"])
+def test_session_matches_jax_session_formats(tmp_path, fmt):
+    """An RTL-SDR cu8 capture (raw, its rate from the settings) and a 24-bit
+    .sdriq (the i24 ingest) through both sessions, by the same bounds."""
+    carriers = ((20_000.0, "fm"), (-15_000.0, "am"))
+    if fmt == "sdriq24":
+        path = _capture(str(tmp_path / "cap.sdriq"), 1 << 20, sample_size=24,
+                        carriers=carriers)
+        source = {"file_path": path}
+    else:
+        iq = sum(testsource.generate(testsource.TestSourceConfig(
+            sample_rate=RATE, carrier_freq=f, modulation=mod, tone_freq=1000.0,
+            fm_deviation=5000.0, amplitude=0.3), 1 << 20) for f, mod in carriers)
+        path = str(tmp_path / "cap.cu8")
+        complex_to_iq_raw(torch.from_numpy(iq), "u8").numpy().tofile(path)
+        source = {"file_path": path, "sample_rate": RATE}
+    _compare_with_jax_session({"kind": "filesource", "log2_decim": 3, "run_blocks": 4,
+                               **source})
+
+
+def _compare_with_jax_session(source):
+    from sdrangel_tpu.runtime.session import DeviceSet as JaxDeviceSet
+
     channels = [(NFM, {"inputFrequencyOffset": 20_000.0, "squelch_db": -60.0}),
                 (AM, {"inputFrequencyOffset": -15_000.0, "squelch_db": -60.0})]
     port = _port_set(source, channels)
