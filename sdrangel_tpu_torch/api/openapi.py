@@ -73,7 +73,9 @@ PATHS = {
     "/sdrangel/location": {"get": {}, "put": {}},
     "/sdrangel/profile": {
         "post": {"summary": "capture a torch.profiler trace "
-                            "(body: {seconds, path})"}},
+                            "(body: {seconds, path}); the response also holds "
+                            "the port's spans ({name: {calls, seconds}}) and "
+                            "counters ({name: value}) over the traced seconds"}},
     "/sdrangel/openapi": {"get": {}},
     "/sdrangel/deviceset": {
         "post": {"summary": "add a device set (?tx=1 for a sink)"},

@@ -45,6 +45,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from ..channels import registry
+from ..runtime import tracing
 from ..runtime.session import SOURCE_KINDS, Session, device_settings
 
 logger = logging.getLogger("sdrangel_tpu_torch.api")
@@ -461,18 +462,23 @@ class ApiHandler(BaseHTTPRequestHandler):
             if p == "/sdrangel/profile":
                 # a torch.profiler trace of the running pipelines for
                 # `seconds`, written as a Chrome trace (trace.json) under
-                # `path`; on the card it holds the device's kernels too
+                # `path`; on the card it holds the device's kernels too.
+                # The port's spans and counters over those seconds come back
+                # beside it (runtime/tracing.py)
                 path = s.server_file_path(body.get("path", "trace"), "profile")
                 seconds = max(0.1, min(float(body.get("seconds", 2.0)), 30.0))
                 if not _PROFILE_LOCK.acquire(blocking=False):
                     return self._error(409, "a profiler trace is already running")
                 try:
-                    trace = _profile(s, path, seconds)
+                    trace, spans, counters = _profile(s, path, seconds)
                 except RuntimeError as e:  # a trace already open elsewhere
                     return self._error(500, f"profiler: {e}")
                 finally:
                     _PROFILE_LOCK.release()
-                return self._json(200, {"trace": path, "file": trace, "seconds": seconds})
+                return self._json(200, {
+                    "trace": path, "file": trace, "seconds": seconds,
+                    "spans": {k: {"calls": c, "seconds": t} for k, (c, t) in spans.items()},
+                    "counters": counters})
             if p == "/sdrangel/preset":
                 key = body.get("groupName", "default"), body.get("name", "preset")
                 s.save_preset(*key)
@@ -701,9 +707,10 @@ class ApiHandler(BaseHTTPRequestHandler):
             return self._error(404, f"not found: {e}")
 
 
-def _profile(session: Session, path: str, seconds: float) -> str:
+def _profile(session: Session, path: str, seconds: float) -> tuple[str, dict, dict]:
     """Record every thread's torch operations (and, on the card, the
-    device's kernels) for `seconds`; returns the Chrome trace's file."""
+    device's kernels) for `seconds`; returns the Chrome trace's file and
+    the port's span tallies and counters over those seconds."""
     import os
     import time
 
@@ -715,12 +722,14 @@ def _profile(session: Session, path: str, seconds: float) -> str:
         activities.append(ProfilerActivity.CUDA)
     # the device sets' workers run in threads of their own
     config = _ExperimentalConfig(profile_all_threads=True)
+    before = tracing.totals()
     with profile(activities=activities, experimental_config=config) as prof:
         time.sleep(seconds)
+    spans, counters = tracing.since(before)
     os.makedirs(path, exist_ok=True)
     trace = os.path.join(path, "trace.json")
     prof.export_chrome_trace(trace)
-    return trace
+    return trace, spans, counters
 
 
 def make_server(session: Session, host: str = "127.0.0.1", port: int = 8091,

@@ -17,7 +17,12 @@ import numpy as np
 import torch
 
 from ..io import sdriq
+from ..runtime import tracing
+from ..runtime.engine import FED_BYTES
 from .mesh import Mesh
+
+#: the span of the host copy of a block's rows
+COPY = "hostfeed copy"
 
 
 def shard_block(mesh: Mesh, block_size: int, b: int,
@@ -26,8 +31,12 @@ def shard_block(mesh: Mesh, block_size: int, b: int,
     (count, 2) int16 row, read once per local time row."""
     rows = block_size // mesh.n_time
     # a copy: the row may be a view of the read-only memory map
-    host = {t: torch.from_numpy(np.array(read(b * block_size + t * rows, rows), dtype=np.int16))
-            for t in sorted({k[0] for k in mesh.local})}
+    with tracing.span(COPY):
+        host = {t: torch.from_numpy(np.array(read(b * block_size + t * rows, rows),
+                                             dtype=np.int16))
+                for t in sorted({k[0] for k in mesh.local})}
+    for k in mesh.local:
+        tracing.count(FED_BYTES, host[k[0]].nbytes)
     return {k: host[k[0]].to(mesh.device(k)) for k in mesh.local}
 
 

@@ -41,7 +41,6 @@ import logging
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..channels.registry import REGISTRY
 from ..dsp import channelizer as chan
@@ -51,12 +50,14 @@ from ..dsp import spectrum as dsp_spectrum
 from ..dsp.hbfilter import DECIMATORS_ORDER
 from ..dsp.types import iq_raw_to_complex64
 from ..kernels.flat_decimate_tc import flat_decimate_tc
+from ..runtime import tracing
 from ..runtime.engine import _from_numpy, _to_numpy, pin_f32_precision, resolve_device
 from .mesh import Mesh, make_mesh
 
 NFM_URI = "sdrangel.channel.nfmdemod"
-#: the step's layers, each a torch.profiler range, so that a profiled run
-#: splits the step's time by layer (profile_product --gear bank reads them)
+#: the step's layers, each a tracing span (a torch.profiler range while a
+#: profiler runs), so that a profiled run splits the step's time by layer
+#: (profile_product --gear bank and portbench's bankgear read them)
 LAYERS = (DECIMATE, COLLECTIVES, SPECTRUM, ANALYSIS, SELECT, DEMOD) = (
     "gear ÷2^k decimator", "gear collectives", "gear spectrum tap", "gear PFB analysis",
     "gear channel select", "gear demod bank")
@@ -359,11 +360,11 @@ class _Gear:
         the carry) injected as its history."""
         cfg, mesh = self.cfg, self.mesh
         if not self.halo:
-            with record_function(DECIMATE):
+            with tracing.span(DECIMATE):
                 return {k: iq_raw_to_complex64(x) for k, x in xs.items()}, carry
-        with record_function(COLLECTIVES):
+        with tracing.span(COLLECTIVES):
             left = mesh.ring_shift({k: x[x.shape[0] - self.halo:] for k, x in xs.items()})
-        with record_function(DECIMATE):
+        with tracing.span(DECIMATE):
             bb = {k: _cascade_with_halo(
                 xs[k], carry.to(mesh.device(k), non_blocking=True) if k[0] == 0 else left[k],
                 cfg.log2_decim, cfg.fc_pos) for k in mesh.local}
@@ -386,10 +387,10 @@ class _Gear:
             states = []
             for g, (kind, gcfg) in enumerate(zip(self.kinds, cfg.demod_cfgs)):
                 cstate, dstate = units[chunk, k][g]
-                with record_function(SELECT):
+                with tracing.span(SELECT):
                     cstate, xb = take(chunk, k, g, cstate)
                     off = self.chunk_of(offsets[g], chunk, k, g)
-                with record_function(DEMOD):
+                with tracing.span(DEMOD):
                     dstate, audio = kind.process(dstate, xb, gcfg, offset_hz=off)
                 states.append((cstate, dstate))
                 audios[g].setdefault(chunk, audio)
@@ -464,19 +465,19 @@ def build_sharded_step(cfg: ShardedPipelineConfig, mesh: Mesh | torch.device | s
                 raise ValueError("pfb_m set: pass pfb_idx (see grid_split)")
             pfb_idx = gear.per_group(pfb_idx)
         bb, new_carry = gear.decimate(gear.shards(x), carry)
-        with record_function(COLLECTIVES):
+        with tracing.span(COLLECTIVES):
             full = mesh.all_gather_time(bb)  # (T/2^k,) on every shard
 
         spec = None
         if scfg is not None:  # stateless display frame of the block
-            with record_function(SPECTRUM):
+            with tracing.span(SPECTRUM):
                 home = mesh.local[0]
                 _, spec = dsp_spectrum.power_spectrum(
                     dsp_spectrum.make_state(scfg, mesh.device(home)), full[home], scfg)
 
         pfb_out = dict(state.pfb)
         if m:
-            with record_function(ANALYSIS):
+            with tracing.span(ANALYSIS):
                 if frame_sharded and d_total > 1:
                     # shard d analyses frame chunk d with its (P−1)·M halo
                     # from the gathered baseband; the tail stays replicated
@@ -493,7 +494,7 @@ def build_sharded_step(cfg: ShardedPipelineConfig, mesh: Mesh | torch.device | s
                     for k in mesh.local:
                         pfb_out[k], ych[k] = pfbmod.analyze(state.pfb[k], full[k], m, h)
             if pieces is not None:
-                with record_function(COLLECTIVES):
+                with tracing.span(COLLECTIVES):
                     ych = mesh.all_gather(pieces)  # (F, M) on every shard
 
         def take(chunk, k, g, cstate):
@@ -570,17 +571,17 @@ def build_a2a_step(cfg: ShardedPipelineConfig, mesh: Mesh | torch.device | str =
         if scfg is not None:
             # the display frame grid aligns with the time shards, so the
             # block's last frame is the last time shard's last frame
-            with record_function(SPECTRUM):
+            with tracing.span(SPECTRUM):
                 v = None
                 if last in bb:
                     _, v = dsp_spectrum.power_spectrum(
                         dsp_spectrum.make_state(scfg, mesh.device(last)), bb[last], scfg)
-            with record_function(COLLECTIVES):
+            with tracing.span(COLLECTIVES):
                 spec = mesh.from_shard(last, v, (scfg.fft_size,), torch.float32)
 
-        with record_function(COLLECTIVES):
+        with tracing.span(COLLECTIVES):
             left = mesh.ring_shift({k: b[b.shape[0] - ph:] for k, b in bb.items()})
-        with record_function(ANALYSIS):
+        with tracing.span(ANALYSIS):
             pieces = {}
             for k in mesh.local:
                 halo = pfb_carry.to(mesh.device(k), non_blocking=True) if k[0] == 0 else left[k]
@@ -588,7 +589,7 @@ def build_a2a_step(cfg: ShardedPipelineConfig, mesh: Mesh | torch.device | str =
                 start = k[1] * f_col * m
                 pieces[k] = _pfb_with_halo(torch.cat([halo, bb[k]])[start:start + f_col * m + ph],
                                            m, h)
-        with record_function(COLLECTIVES):
+        with tracing.span(COLLECTIVES):
             mine = mesh.all_to_all(pieces)  # (F_total, M/D): this shard's grid chunk
 
         def take(chunk, k, g, cstate):

@@ -11,17 +11,12 @@ receivers instead, `RECEIVERS`). --gear bank: the bank gear
 (parallel/sharded.py) at the bench's chainsharded width — 12.288 MS/s i16
 in 2^25-sample blocks, ÷64 cen on K1-TC, PFB-4, 16 NFM at the bench's
 offsets, on the bench's input (uniform int16 in [−2048, 2048) from a seed). After a warm-up it
-prints:
-  * product gear: the per-layer split, each stage of the step run on its
-    own and synchronized (host clock, launch overhead included) — upload
-    (host copy into pinned memory + H2D), the ÷2^k decimator, the
-    channelizer, the demods, taps, fetch of the outputs;
-  * the steady loop (upload, step, fetch one block behind): seconds per
-    block; then, from torch.profiler over a second run, the device time by
-    kernel and the device's busy share of the steady loop's wall time;
-    bank gear: also the per-layer split of that profiled run, read from the
-    step's own profiler ranges (sharded.LAYERS) and the loop's feed and
-    fetch ranges — device time and host time per layer.
+prints the steady loop (upload, step, fetch one block behind): seconds per
+block; then, from torch.profiler over a second run, the per-layer split —
+device time and host time per layer, read from the step's own tracing spans
+(product gear: engine.LAYERS and the fetch's wait; bank gear:
+sharded.LAYERS and the loop's feed and fetch spans) — the device time by
+kernel and the device's busy share of the steady loop's wall time.
 Needs a CUDA card.
 """
 
@@ -34,14 +29,10 @@ import time
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import record_function
 
-from .dsp import channelizer as chan
-from .dsp import decimators as dec
-from .dsp import scope as dsp_scope
-from .dsp import spectrum as dsp_spectrum
 from .io import testsource
 from .parallel import sharded
+from .runtime import engine, tracing
 from .runtime.engine import ChannelSpec, DeviceConfig, RxPipeline
 
 RATE = 10e6
@@ -87,51 +78,11 @@ def chainsharded_offsets(cfg: sharded.ShardedPipelineConfig) -> np.ndarray:
     return np.array([(k % 4 - 1.5) * grid * 2 + jit4[k // 4] for k in range(16)])
 
 
-def _timed(fn):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, (time.perf_counter() - t0) * 1e3
-
-
-def layer_split(pipe: RxPipeline, blocks: list[np.ndarray]) -> dict[str, float]:
-    """Mean synchronized wall ms per stage of the step, over `blocks`."""
-    state = pipe.init_state()
-    totals: dict[str, float] = {}
-
-    def add(name, ms):
-        totals[name] = totals.get(name, 0.0) + ms / len(blocks)
-
-    for raw_np in blocks:
-        raw, ms = _timed(lambda: pipe.upload(raw_np))
-        add("upload (pin + H2D)", ms)
-        (dev_state, bb), ms = _timed(
-            lambda: dec.decimate_flat_raw(state["dev_casc"], raw, pipe.frontend.log2_decim))
-        add("ingest + K1 ÷2^k", ms)
-        ys = []
-        for i, plan in enumerate(pipe.plans):
-            (cs, y), ms = _timed(lambda: chan.channelize(state["chan"][i], bb, plan))
-            add("channelizer", ms)
-            ys.append(y)
-        for i, (kind, cfg) in enumerate(zip(pipe.kinds, pipe.demod_cfgs)):
-            _, ms = _timed(lambda: kind.process(state["demod"][i], ys[i], cfg))
-            add("demod", ms)
-        _, ms = _timed(lambda: (
-            dsp_spectrum.power_spectrum(state["spectrum"], bb, pipe.spectrum_cfg),
-            dsp_scope.project(bb[:1024], dsp_scope.Projection.MAG_DB)))
-        add("spectrum + scope taps", ms)
-        (state, flat), _ = _timed(lambda: pipe.step_packed(state, raw))
-        _, ms = _timed(lambda: pipe.to_host(flat))
-        add("fetch outputs", ms)
-    return totals
-
-
 def _upload(raw: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(raw).pin_memory().to(device, non_blocking=True)
 
 
-#: the bank loop's host layers as torch.profiler ranges, beside the step's own
+#: the bank loop's host layers as tracing spans, beside the step's own
 FEED, FETCH = "host feed (pin + H2D)", "fetch audio (D2H)"
 
 
@@ -141,14 +92,14 @@ def run_bank(step, init_fn, blocks, res, idx):
     state, carry = init_fn()
     pending = None
     for raw_np in blocks:
-        with record_function(FEED):
+        with tracing.span(FEED):
             x = _upload(raw_np, dev)
         state, audio, carry = step(state, x, carry, res, idx)
         if pending is not None:
-            with record_function(FETCH):
+            with tracing.span(FETCH):
                 pending.cpu().numpy()
         pending = audio
-    with record_function(FETCH):
+    with tracing.span(FETCH):
         pending.cpu().numpy()
 
 
@@ -256,9 +207,6 @@ def main(argv=None) -> int:
     print(f"{name}: {what}, block {pipe.device_block}, {args.blocks} blocks", flush=True)
     list(pipe.run(lambda b, n: blocks[b], 2))  # warm-up
 
-    for stage, ms in layer_split(pipe, blocks).items():
-        print(f"layer {stage}: {ms:.3f} ms/block (synchronized)", flush=True)
-
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     list(pipe.run(lambda b, n: blocks[b], args.blocks))
@@ -267,7 +215,8 @@ def main(argv=None) -> int:
     print(f"steady run: {wall / args.blocks * 1e3:.3f} ms/block, real-time factor "
           f"{args.blocks * pipe.device_block / RATE / wall:.2f}", flush=True)
 
-    _device_time(lambda: list(pipe.run(lambda b, n: blocks[b], args.blocks)), args.blocks, wall)
+    _device_time(lambda: list(pipe.run(lambda b, n: blocks[b], args.blocks)), args.blocks, wall,
+                 layers=(*engine.LAYERS, engine.FETCH_WAIT))
     return 0
 
 

@@ -26,7 +26,16 @@ from ..dsp import decimators as dec
 from ..dsp import scope as dsp_scope
 from ..dsp import spectrum as dsp_spectrum
 from ..dsp.types import INPUT_FORMATS, iq_raw_to_complex64
-from . import corrections
+from . import corrections, tracing
+
+#: the step's layers, each a tracing span (a torch.profiler range while a
+#: profiler runs), so that a profiled run splits the step's time by layer
+LAYERS = (DECIMATE, CHANNELIZE, DEMOD, TAPS, PACK) = (
+    "rx ÷2^k decimator", "rx channelizer", "rx demod", "rx taps", "rx pack")
+#: the host's wait for the device in `fetch`
+FETCH_WAIT = "rx fetch wait"
+#: counters: host memory pinned for a copy; bytes of input handed to a device
+PINNED_BYTES, FED_BYTES = "pinned bytes", "fed bytes"
 
 
 def pin_f32_precision() -> None:
@@ -220,39 +229,45 @@ class RxPipeline:
             raise TypeError(f"{f.input_format} capture must be {INPUT_FORMATS[f.input_format][0]}, "
                             f"got {raw.dtype}")
         corr_state = state["corr"]
-        if self.fused_ingest:
-            dev_state, bb = dec.decimate_flat_raw(state["dev_casc"], raw, f.log2_decim)
-        else:
-            x = iq_raw_to_complex64(raw, f.input_format)
-            corr_state, x = corrections.apply(corr_state, x, f.dc_correction, f.iq_correction)
-            if f.log2_decim:
-                dev_state, bb = dec.decimate_flat_any(state["dev_casc"], x, f.log2_decim, f.fc_pos)
-            else:  # no stage: the cascade of zero stages passes x through
-                dev_state, bb = dec.decimate_cascade(state["dev_casc"], x, 0, f.fc_pos)
+        with tracing.span(DECIMATE):
+            if self.fused_ingest:
+                dev_state, bb = dec.decimate_flat_raw(state["dev_casc"], raw, f.log2_decim)
+            else:
+                x = iq_raw_to_complex64(raw, f.input_format)
+                corr_state, x = corrections.apply(corr_state, x, f.dc_correction,
+                                                  f.iq_correction)
+                if f.log2_decim:
+                    dev_state, bb = dec.decimate_flat_any(state["dev_casc"], x, f.log2_decim,
+                                                          f.fc_pos)
+                else:  # no stage: the cascade of zero stages passes x through
+                    dev_state, bb = dec.decimate_cascade(state["dev_casc"], x, 0, f.fc_pos)
 
         chan_states, demod_states, outs = [], [], []
         for i, (plan, kind, cfg) in enumerate(zip(self.plans, self.kinds, self.demod_cfgs)):
-            cstate, y = chan.channelize(state["chan"][i], bb, plan)
-            d = dict(dyn[i]) if dyn is not None else {}
-            dstate, result = kind.process(state["demod"][i], y, cfg, **d)
-            entry = ({"data": kind.adapter(result)} if kind.output == "data"
-                     else {"audio": result})
-            # channel power meter (nfmdemod.h:153-170 magsq average)
-            entry["power"] = torch.mean(y.real ** 2 + y.imag ** 2)
-            if kind.meters is not None:
-                entry.update(kind.meters(dstate, cfg, d))
+            with tracing.span(CHANNELIZE):
+                cstate, y = chan.channelize(state["chan"][i], bb, plan)
+            with tracing.span(DEMOD):
+                d = dict(dyn[i]) if dyn is not None else {}
+                dstate, result = kind.process(state["demod"][i], y, cfg, **d)
+                entry = ({"data": kind.adapter(result)} if kind.output == "data"
+                         else {"audio": result})
+                # channel power meter (nfmdemod.h:153-170 magsq average)
+                entry["power"] = torch.mean(y.real ** 2 + y.imag ** 2)
+                if kind.meters is not None:
+                    entry.update(kind.meters(dstate, cfg, d))
             chan_states.append(cstate)
             demod_states.append(dstate)
             outs.append(entry)
 
-        spec_state, bb_spectrum = dsp_spectrum.power_spectrum(
-            state["spectrum"], bb, self.spectrum_cfg)
-        head = bb[..., :1024]  # scope tap: the block head (ScopeVis role)
-        scope = torch.stack([
-            dsp_scope.project(head, dsp_scope.Projection.REAL),
-            dsp_scope.project(head, dsp_scope.Projection.IMAG),
-            dsp_scope.project(head, dsp_scope.Projection.MAG_DB),
-        ])
+        with tracing.span(TAPS):
+            spec_state, bb_spectrum = dsp_spectrum.power_spectrum(
+                state["spectrum"], bb, self.spectrum_cfg)
+            head = bb[..., :1024]  # scope tap: the block head (ScopeVis role)
+            scope = torch.stack([
+                dsp_scope.project(head, dsp_scope.Projection.REAL),
+                dsp_scope.project(head, dsp_scope.Projection.IMAG),
+                dsp_scope.project(head, dsp_scope.Projection.MAG_DB),
+            ])
         new_state = {
             "corr": corr_state, "dev_casc": dev_state, "chan": chan_states,
             "demod": demod_states, "spectrum": spec_state,
@@ -265,7 +280,8 @@ class RxPipeline:
         """`step` with the outputs tree packed into one float32 vector on the
         pipeline's device (see `pack_outs`); its layout is `out_layout`."""
         state, outs = self.step(state, raw, dyn)
-        flat, layout = pack_outs(outs)
+        with tracing.span(PACK):
+            flat, layout = pack_outs(outs)
         self.out_layout = layout
         return state, flat
 
@@ -281,7 +297,9 @@ class RxPipeline:
         if not raw.flags.writeable or not raw.flags.c_contiguous:
             raw = np.array(raw)
         t = torch.from_numpy(raw)
+        tracing.count(FED_BYTES, raw.nbytes)
         if self.device.type == "cuda":
+            tracing.count(PINNED_BYTES, raw.nbytes)
             t = t.pin_memory().to(self.device, non_blocking=True)
         return t
 
@@ -388,11 +406,13 @@ def fetch(flat: torch.Tensor) -> np.ndarray:
     if flat.device.type != "cuda":
         return flat.numpy()
     host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+    tracing.count(PINNED_BYTES, host.nbytes)
     with torch.cuda.device(flat.device):
         host.copy_(flat, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
-    done.synchronize()
+    with tracing.span(FETCH_WAIT):
+        done.synchronize()
     return host.numpy()
 
 

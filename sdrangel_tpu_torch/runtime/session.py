@@ -90,12 +90,16 @@ from ..io import daemon, rtp, sdriq, testsource, udp
 from ..parallel import hostfeed
 from ..parallel import mesh as meshmod
 from ..parallel import sharded as shmod
-from . import refpreset
+from . import refpreset, tracing
 from .engine import ChannelSpec, DeviceConfig, RxPipeline, fetch, resolve_device, unpack_outs
 from .fifo import BlockFifo
 from .tx import BLOCK_AF, TxChannelSpec, TxDeviceConfig, TxPipeline
 
 _log = logging.getLogger(__name__)
+
+#: the Rx worker's spans: the block's read from its source, and the
+#: read-back and publishing of a burst of blocks
+READ, PUBLISH = "session read", "session publish"
 
 #: available source kinds (the DeviceEnumerator role: software sources only)
 SOURCE_KINDS = {
@@ -777,12 +781,13 @@ class DeviceSet:
                     """Read `blocks` back with one copy and publish them to
                     the channels they were computed for."""
                     nonlocal signal_s
-                    flat = fetch(blocks[0] if len(blocks) == 1 else torch.cat(blocks))
-                    size = pipe.out_layout.size
-                    for k in range(len(blocks)):
-                        self._publish_block(
-                            unpack_outs(flat[k * size:(k + 1) * size], pipe.out_layout),
-                            chans, egress)
+                    with tracing.span(PUBLISH):
+                        flat = fetch(blocks[0] if len(blocks) == 1 else torch.cat(blocks))
+                        size = pipe.out_layout.size
+                        for k in range(len(blocks)):
+                            self._publish_block(
+                                unpack_outs(flat[k * size:(k + 1) * size], pipe.out_layout),
+                                chans, egress)
                     signal_s += len(blocks) * block_seconds
                     self.elapsed_s = time.perf_counter() - t_start
                     self.realtime_factor = signal_s / max(self.elapsed_s, 1e-9)
@@ -800,7 +805,8 @@ class DeviceSet:
                             continue
                     t0 = time.perf_counter()
                     t_start = t0 if t_start is None else t_start
-                    raw = reader(pos, pipe.device_block)
+                    with tracing.span(READ):
+                        raw = reader(pos, pipe.device_block)
                     if recorder is not None:
                         recorder[1].write(_to_i16_record(raw, pipe.frontend.input_format))
                     if isinstance(raw, np.ndarray):

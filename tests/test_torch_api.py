@@ -27,6 +27,8 @@ from sdrangel_tpu_torch.api import openapi, server
 from sdrangel_tpu_torch.api.server import make_server
 from sdrangel_tpu_torch.channels.registry import CONFIG_CLASSES
 from sdrangel_tpu_torch.io import sdriq, testsource
+from sdrangel_tpu_torch.runtime import engine
+from sdrangel_tpu_torch.runtime import session as session_mod
 from sdrangel_tpu_torch.runtime.session import PRESET_SCHEMA_VERSION, Session, migrate_preset
 from torch_port_util import CPU, tone_snr
 
@@ -1282,6 +1284,26 @@ def test_profile_endpoint(api, tmp_path, monkeypatch):
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any(n.startswith("aten::") for n in names), sorted(names)[:20]
     assert _req(base, "/sdrangel/profile", "POST", {"path": "/etc/x"})[0] == 400
+
+
+def test_profile_endpoint_returns_the_port_spans(api, tmp_path, monkeypatch):
+    """POST /sdrangel/profile also returns the spans and counters the port
+    tallied over the traced seconds: the Rx step's layers and the worker's
+    read and publish, from the running set's thread."""
+    monkeypatch.setenv("SDRANGEL_TPU_FILES_DIR", str(tmp_path))
+    base, session = api
+    _fm_set(base)
+    _req(base, "/sdrangel/deviceset/0/device/run", "POST")
+    _poll(lambda: session.device_sets[0].blocks_processed > 0)
+    code, body = _req(base, "/sdrangel/profile", "POST",
+                      {"seconds": 1.0, "path": str(tmp_path / "trace")})
+    _req(base, "/sdrangel/deviceset/0/device/run", "DELETE")
+    assert code == 200
+    names = {*engine.LAYERS, session_mod.READ, session_mod.PUBLISH}
+    assert names <= set(body["spans"]), sorted(body["spans"])
+    for name in names:
+        assert body["spans"][name]["calls"] > 0 and body["spans"][name]["seconds"] > 0
+    assert isinstance(body["counters"], dict)
 
 
 # -- the OpenAPI document against the routes (tests/test_openapi.py) ----------------------
