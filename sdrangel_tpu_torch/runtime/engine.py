@@ -2,8 +2,10 @@
 
 Per block: ingest (int16 → K1 directly on the fused i16 path, else
 normalize + DC/IQ correction), the ÷2^k device decimation on K1, then for
-each channel the channelizer cascade and the demodulator, plus the spectrum
-and scope taps of the baseband. Everything runs on the pipeline's
+each channel the channelizer cascade, and for each group of channels the
+demodulator — one batched call over a bank of channels that share a kind,
+a plan depth and settings — plus the spectrum and scope taps of the
+baseband. Everything runs on the pipeline's
 `torch.device`; on the card the ops queue asynchronously, and `run` reads
 block N back while block N+1 is already queued. A block's outputs leave the
 device packed into one float32 vector (`step_packed`), so reading them back
@@ -36,6 +38,9 @@ LAYERS = (DECIMATE, CHANNELIZE, DEMOD, TAPS, PACK) = (
 FETCH_WAIT = "rx fetch wait"
 #: counters: host memory pinned for a copy; bytes of input handed to a device
 PINNED_BYTES, FED_BYTES = "pinned bytes", "fed bytes"
+#: counters: the channels a step ran; those of them that ran in a bank of
+#: two or more (one `process` call over their stacked inputs)
+RX_CHANNELS, RX_BANKED = "rx channels", "rx banked channels"
 
 
 def pin_f32_precision() -> None:
@@ -119,6 +124,7 @@ class RxPipeline:
             if any(f.name == "block_in" for f in dataclasses.fields(kind.config_cls)):
                 kw["block_in"] = self.base_block >> len(plan.signs)
             self.demod_cfgs.append(kind.config_cls(**kw))
+        self._group_channels()
         self.spectrum_cfg = spectrum_cfg or dsp_spectrum.SpectrumConfig(
             fft_size=1024, averaging_mode="moving", averaging_n=8)
         # i16 cen capture without corrections: the raw int16 block goes
@@ -128,6 +134,29 @@ class RxPipeline:
             and frontend.log2_decim > 0
             and not frontend.dc_correction and not frontend.iq_correction
         )
+
+    def _group_channels(self) -> None:
+        """The demod groups, in order of their first channel: channels of an
+        audio kind that takes its offset per block (the kinds the bank gear
+        runs), at one plan depth — so one channel rate — and with one
+        settings dict run as a bank, one `process` call over their stacked
+        inputs; every other channel is a group of its own. A bank's config
+        is its channels' config with `input_offset` as the float64 array of
+        their residual offsets, which each kind's NCO turns into per-channel
+        increments through the same host function as one channel's."""
+        keys: dict[tuple, list[int]] = {}
+        for i, (spec, plan, kind) in enumerate(zip(self.channel_specs, self.plans, self.kinds)):
+            bankable = kind.output == "audio" and "offset_hz" in kind.dynamic_fields
+            key = ((spec.uri, len(plan.signs), repr(sorted(spec.settings.items())))
+                   if bankable else (i,))
+            keys.setdefault(key, []).append(i)
+        self.groups = [tuple(idxs) for idxs in keys.values()]
+        self.group_cfgs = [
+            self.demod_cfgs[idxs[0]] if len(idxs) == 1 else dataclasses.replace(
+                self.demod_cfgs[idxs[0]],
+                input_offset=np.array([self.plans[i].residual_offset for i in idxs]))
+            for idxs in self.groups]
+        self.n_banked = sum(len(idxs) for idxs in self.groups if len(idxs) > 1)
 
     def _solve_block_size(self, requested: int | None) -> int:
         """Baseband block length divisible as every stage needs: ×4 for the
@@ -180,11 +209,25 @@ class RxPipeline:
                 if k else dec.init_state(0, self.device)
             ),
             "chan": [chan.init_state(len(p.signs), self.device) for p in self.plans],
+            # one a group: a bank's state stacks its channels' states
             "demod": [
-                kind.make_state(cfg, self.device)
-                for kind, cfg in zip(self.kinds, self.demod_cfgs)
+                self.kinds[idxs[0]].make_state(
+                    cfg, self.device, *([(len(idxs),)] if len(idxs) > 1 else []))
+                for idxs, cfg in zip(self.groups, self.group_cfgs)
             ],
         }
+
+    def channel_states(self, state: dict) -> list:
+        """Each channel's demod state, in the channels' order: a bank's rows
+        as views of its stacked state."""
+        per = [None] * len(self.channel_specs)
+        for idxs, dstate in zip(self.groups, state["demod"]):
+            if len(idxs) == 1:
+                per[idxs[0]] = dstate
+            else:
+                for j, i in enumerate(idxs):
+                    per[i] = _tree_map(lambda x, j=j: x[j], dstate)
+        return per
 
     def state_from_numpy(self, tree: dict) -> dict:
         """The JAX RxPipeline's state (fetched as numpy, e.g. with
@@ -193,13 +236,20 @@ class RxPipeline:
         states hold crosses over, sync AM's, the AF squelch's, broadcast
         FM's and the data channels' included. A complex64 flat tail
         becomes the fused-ingest int16 raw tail (×32768, exact for values
-        that came from int16)."""
-        return _from_numpy(self.init_state(), tree)
+        that came from int16). The channels' demod states, one a channel
+        as JAX keeps them, are stacked into their banks."""
+        init = self.init_state()
+        per = _from_numpy(dict(init, demod=self.channel_states(init)), tree)
+        return dict(per, demod=[
+            per["demod"][idxs[0]] if len(idxs) == 1 else _tree_map(
+                lambda *rows: torch.stack(rows), *(per["demod"][i] for i in idxs))
+            for idxs in self.groups])
 
     def state_to_numpy(self, state: dict) -> dict:
         """This pipeline's state as numpy in the JAX package's field types:
-        NCO phases as uint32, the int16 raw tail as the complex64 tail."""
-        return _to_numpy(state)
+        NCO phases as uint32, the int16 raw tail as the complex64 tail, and
+        one demod state a channel, in the channels' order."""
+        return _to_numpy(dict(state, demod=self.channel_states(state)))
 
     def default_dyn(self) -> list[dict]:
         """Per-channel overrides initialized from the bound configs."""
@@ -242,22 +292,37 @@ class RxPipeline:
                 else:  # no stage: the cascade of zero stages passes x through
                     dev_state, bb = dec.decimate_cascade(state["dev_casc"], x, 0, f.fc_pos)
 
-        chan_states, demod_states, outs = [], [], []
-        for i, (plan, kind, cfg) in enumerate(zip(self.plans, self.kinds, self.demod_cfgs)):
-            with tracing.span(CHANNELIZE):
-                cstate, y = chan.channelize(state["chan"][i], bb, plan)
+        n = len(self.channel_specs)
+        chan_states, demod_states, outs = [None] * n, [], [None] * n
+        for g, (idxs, cfg) in enumerate(zip(self.groups, self.group_cfgs)):
+            kind = self.kinds[idxs[0]]
+            ys = []
+            for i in idxs:
+                with tracing.span(CHANNELIZE):
+                    chan_states[i], y = chan.channelize(state["chan"][i], bb, self.plans[i])
+                ys.append(y)
             with tracing.span(DEMOD):
-                d = dict(dyn[i]) if dyn is not None else {}
-                dstate, result = kind.process(state["demod"][i], y, cfg, **d)
+                if len(idxs) == 1:
+                    d = dict(dyn[idxs[0]]) if dyn is not None else {}
+                else:  # the bank: its channels as the rows of one block
+                    y = torch.stack(ys)
+                    d = self._bank_dyn(idxs, dyn) if dyn is not None else {}
+                dstate, result = kind.process(state["demod"][g], y, cfg, **d)
                 entry = ({"data": kind.adapter(result)} if kind.output == "data"
                          else {"audio": result})
                 # channel power meter (nfmdemod.h:153-170 magsq average)
-                entry["power"] = torch.mean(y.real ** 2 + y.imag ** 2)
+                entry["power"] = torch.mean(y.real ** 2 + y.imag ** 2, dim=-1)
                 if kind.meters is not None:
                     entry.update(kind.meters(dstate, cfg, d))
-            chan_states.append(cstate)
+                if len(idxs) == 1:
+                    outs[idxs[0]] = entry
+                else:  # each channel's entry: its rows of the bank's outputs
+                    rows = {k: v.unbind(0) for k, v in entry.items()}
+                    for j, i in enumerate(idxs):
+                        outs[i] = {k: v[j] for k, v in rows.items()}
             demod_states.append(dstate)
-            outs.append(entry)
+        tracing.count(RX_CHANNELS, n)
+        tracing.count(RX_BANKED, self.n_banked)
 
         with tracing.span(TAPS):
             spec_state, bb_spectrum = dsp_spectrum.power_spectrum(
@@ -273,6 +338,17 @@ class RxPipeline:
             "demod": demod_states, "spectrum": spec_state,
         }
         return new_state, {"channels": outs, "spectrum": bb_spectrum, "scope": scope}
+
+    def _bank_dyn(self, idxs: tuple[int, ...], dyn: list[dict]) -> dict:
+        """A bank's per-channel overrides as one (C,) float32 tensor a field
+        on the pipeline's device, as the bank gear passes its offsets; a
+        field that some of its channels leave out takes their bound
+        config's value (`default_dyn`)."""
+        fields = {f for i in idxs for f in dyn[i]}
+        defaults = self.default_dyn() if any(fields - dyn[i].keys() for i in idxs) else None
+        return {field: torch.tensor(
+            [float(dyn[i][field] if field in dyn[i] else defaults[i][field]) for i in idxs],
+            dtype=torch.float32).to(self.device, non_blocking=True) for field in sorted(fields)}
 
     # -- packed outputs ------------------------------------------------------
 
@@ -422,6 +498,21 @@ def _config_field(config_cls: type, settings: dict, name: str):
     if name in settings:
         return settings[name]
     return next(f.default for f in dataclasses.fields(config_cls) if f.name == name)
+
+
+def _tree_map(fn, *trees: Any) -> Any:
+    """fn over the tensors of states of one structure (NamedTuples, dicts,
+    lists and tuples of tensors)."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return fn(*trees)
+    if isinstance(first, dict):
+        return {k: _tree_map(fn, *(tr[k] for tr in trees)) for k in first}
+    if hasattr(first, "_fields"):
+        return type(first)(*(_tree_map(fn, *leaves) for leaves in zip(*trees)))
+    if isinstance(first, (list, tuple)):
+        return type(first)(_tree_map(fn, *leaves) for leaves in zip(*trees))
+    raise TypeError(f"unexpected state node {type(first)}")
 
 
 def _from_numpy(template: Any, value: Any) -> Any:

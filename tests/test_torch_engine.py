@@ -14,6 +14,12 @@ The AM, SSB and WFM receivers on the same front end (alone, and NFM+AM+SSB
 in one pipeline; WFM asks for 250 kHz): each channel's audio within 2e-5
 of the JAX audio's block peak, its power and squelch meter as JAX's; the
 block-size solver equal to the JAX engine's, raising where it raises.
+
+Demod banks: 16 NFM channels on the nfm16 raster (two banks) and a mix that
+groups by kind, plan depth and settings, each against one one-channel
+pipeline a channel (a bank's rows within 1e-6 of the block's peak, a group
+of one bit for bit, NCO phases exact, the same packed layout); live
+overrides reach their own row of a bank as in the JAX step.
 """
 
 import os
@@ -38,8 +44,11 @@ RATE = 768_000.0
 NFM = "sdrangel.channel.nfmdemod"
 
 
-def _pipes(offset=100_000.0, rate=RATE, log2_decim=1, block_size=32_768, **frontend):
-    chans = [(NFM, offset, {"squelch_db": -60.0})]
+def _pipes(offset=100_000.0, rate=RATE, log2_decim=1, block_size=32_768, extra=(),
+           **frontend):
+    """The JAX and the port's pipeline of NFM channels at `offset` and the
+    `extra` offsets."""
+    chans = [(NFM, f, {"squelch_db": -60.0}) for f in (offset, *extra)]
     jp = jeng.RxPipeline(jeng.DeviceConfig(rate, log2_decim=log2_decim, **frontend),
                          [jeng.ChannelSpec(*c) for c in chans], block_size=block_size)
     pp = peng.RxPipeline(peng.DeviceConfig(rate, log2_decim=log2_decim, **frontend),
@@ -261,20 +270,122 @@ def test_cli_cuda_fails_loudly_without_a_card(tmp_path):
 
 def test_dyn_overrides_match_jax():
     """default_dyn reproduces the bound configs; live overrides (volume,
-    squelch) act as in the JAX step."""
-    jp, pp = _pipes()
-    raws = _blocks(pp, 2, 100_000.0)
+    squelch, offset) act as in the JAX step, each on its own row of the
+    bank that the two NFM channels at one plan depth form."""
+    jp, pp = _pipes(extra=(-100_000.0,))
+    assert pp.groups == [(0, 1)]
+    raws = np.clip(_blocks(pp, 2, 100_000.0).astype(np.int32)
+                   + _blocks(pp, 2, -100_000.0), -32768, 32767).astype(np.int16)
     dyn = pp.default_dyn()
     assert dyn == jp.default_dyn()
-    loud = [dict(dyn[0], volume=0.5, squelch_db=-50.0)]
+    loud = [dict(dyn[0], volume=0.5, squelch_db=-50.0),
+            dict(dyn[1], volume=2.0, offset_hz=dyn[1]["offset_hz"] + 500.0)]
     js, ps = jp.init_state(), pp.init_state()
     for raw in raws:
         js, jo = jp._step(js, jnp.asarray(raw), loud)
         ps, po = pp.step(ps, t(raw), loud)
         _compare_outs(jo, po)
-    ps, shut = pp.step(pp.init_state(), t(raws[0]), [dict(dyn[0], squelch_db=10.0)])
+        _compare_channels(jo, po)
+    # an override one channel of the bank leaves out takes its bound value
+    ps, shut = pp.step(pp.init_state(), t(raws[0]), [{"squelch_db": 10.0}, {}])
     assert not np.any(n(shut["channels"][0]["audio"]))
     assert not bool(shut["channels"][0]["squelch"])
+    assert np.any(n(shut["channels"][1]["audio"])) and bool(shut["channels"][1]["squelch"])
+
+
+# -- demod banks: the channels of one kind, depth and settings in one call ----
+
+#: the nfm16 traffic's raster (portbench/traffic/nfm16.json), received at
+#: 625 kHz (1.25 MS/s ÷2): banks of 12 channels at depth 3 and 4 at depth 2
+NFM16 = [-187_500.0 + 25_000.0 * k for k in range(16)]
+
+
+def _carriers(rate, size, carriers, seed):
+    """NFM carriers (1 kHz, 5 kHz deviation; AM at 80 % for an AM channel)
+    at (uri, offset) and noise 46 dB under one carrier, as an int16
+    capture."""
+    tt = np.arange(size) / rate
+    iq = 0.002 * np.random.default_rng(seed).standard_normal((size, 2)) @ [1, 1j]
+    for uri, f in carriers:
+        if uri == AM:
+            iq += 0.1 * (1.0 + 0.8 * np.sin(2 * np.pi * 1000.0 * tt)) * np.exp(2j * np.pi * f * tt)
+        else:
+            iq += 0.1 * np.exp(1j * (2 * np.pi * f * tt - 5.0 * np.cos(2 * np.pi * 1000.0 * tt)))
+    return np.stack([np.round(iq.real * 32767), np.round(iq.imag * 32767)], -1).astype(np.int16)
+
+
+def _against_one_channel_pipelines(frontend, specs, groups, carriers, n_blocks=3):
+    """The pipeline of `specs` forms `groups` and, block by block, equals one
+    one-channel pipeline a spec in spec order: a bank's rows within 1e-6 of
+    the block's peak (power within 1e-6 relative, squelch equal), a group of
+    one bit for bit, the NCO phases exact; its packed layout is that of the
+    one-channel outputs in spec order. Returns the bank pipeline."""
+    pipe = peng.RxPipeline(frontend, specs, CPU, block_size=32_768)
+    assert pipe.groups == groups
+    assert pipe.n_banked == sum(len(g) for g in groups if len(g) > 1)
+    ones = [peng.RxPipeline(frontend, [s], CPU, block_size=32_768) for s in specs]
+    assert {p.device_block for p in ones} == {pipe.device_block}
+    banked = {i for g in groups if len(g) > 1 for i in g}
+    raws = _carriers(frontend.sample_rate, n_blocks * pipe.device_block, carriers, 5)
+    state, states = pipe.init_state(), [p.init_state() for p in ones]
+    opened = set()
+    for raw in raws.reshape(n_blocks, pipe.device_block, 2):
+        state, flat = pipe.step_packed(state, t(raw))
+        got = peng.unpack_outs(n(flat), pipe.out_layout)
+        want = []
+        for i, one in enumerate(ones):
+            states[i], o = one.step(states[i], t(raw))
+            want.append(o["channels"][0])
+            g, w = got["channels"][i], {k: n(v) for k, v in o["channels"][0].items()}
+            assert list(g) == list(w)
+            if i not in banked:
+                for k in w:
+                    np.testing.assert_array_equal(g[k], w[k])
+                continue
+            peak = max(float(np.abs(w["audio"]).max()), 1e-30)
+            assert np.abs(g["audio"] - w["audio"]).max() <= 1e-6 * peak, f"channel {i}"
+            np.testing.assert_allclose(g["power"], w["power"], rtol=1e-6)
+            assert bool(g["squelch"]) == bool(w["squelch"])
+            opened |= {i} if bool(w["squelch"]) else set()
+        _, layout = peng.pack_outs({"channels": want, "spectrum": o["spectrum"],
+                                    "scope": o["scope"]})
+        assert pipe.out_layout == layout
+    assert opened, "no banked channel's squelch opened: nothing to compare"
+    back = pipe.state_to_numpy(state)
+    assert len(back["demod"]) == len(specs)
+    for i, one in enumerate(ones):
+        assert back["demod"][i].nco.phase == one.state_to_numpy(states[i])["demod"][0].nco.phase
+    return pipe
+
+
+def test_bank_matches_one_channel_pipelines():
+    """The nfm16 raster: 16 NFM channels in two banks, carriers on every
+    other channel, the rest squelched, against 16 one-channel pipelines
+    over 3 blocks; its state round-trips through the JAX layout."""
+    specs = [peng.ChannelSpec(NFM, f, {"squelch_db": -60.0}) for f in NFM16]
+    pipe = _against_one_channel_pipelines(
+        peng.DeviceConfig(1_250_000.0, log2_decim=1), specs,
+        [(0, 1, 3, 4, 6, 7, 8, 9, 11, 12, 14, 15), (2, 5, 10, 13)],
+        [(NFM, f) for f in NFM16[::2]])
+    state = pipe.init_state()
+    handed = pipe.state_from_numpy(pipe.state_to_numpy(state))
+    for a, b in zip(jax.tree.leaves(pipe.state_to_numpy(handed)),
+                    jax.tree.leaves(pipe.state_to_numpy(state))):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_channels_group_by_kind_depth_and_settings():
+    """NFM at +100, −100 and +60 kHz (depth 2) bank; NFM at +24 kHz (depth
+    3), NFM at +140 kHz with another squelch and an AM channel each run
+    alone; the outputs come back in spec order."""
+    sq = {"squelch_db": -60.0}
+    specs = [peng.ChannelSpec(NFM, 100_000.0, sq), peng.ChannelSpec(AM, -150_000.0, sq),
+             peng.ChannelSpec(NFM, -100_000.0, sq), peng.ChannelSpec(NFM, 24_000.0, sq),
+             peng.ChannelSpec(NFM, 60_000.0, sq),
+             peng.ChannelSpec(NFM, 140_000.0, {"squelch_db": -50.0})]
+    _against_one_channel_pipelines(
+        peng.DeviceConfig(RATE, log2_decim=1), specs, [(0, 2, 4), (1,), (3,), (5,)],
+        [(s.uri, s.frequency_offset) for s in specs if s.frequency_offset != 60_000.0])
 
 
 def test_cli_demod_sdriq_capture_and_info(tmp_path, capsys):

@@ -4,8 +4,11 @@ With no profiler running, no span enters a `record_function` and nothing is
 tallied, in the Rx step, the bank gear's step and the host feed. Under
 `torch.profiler` (CPU activity), a 2-channel NFM RxPipeline over 2 blocks
 shows each of `engine.LAYERS` on the profiler's timeline and tallies one
-channelizer and demod span a channel and block; the gear's step shows the
-`sharded.LAYERS` it runs; `shard_block` counts the bytes it hands each
+channelizer span a channel and block and one demod span a demod group (its
+two channels, at one plan depth, run as one bank) and block; a 16-channel
+pipeline at the nfm16 traffic's offsets counts its 16 channels a block,
+all of them banked, and a one-channel pipeline 1 and none; the gear's step
+shows the `sharded.LAYERS` it runs; `shard_block` counts the bytes it hands each
 shard. On the card (`cuda`), `fetch` tallies its wait and the pinned
 buffers of the upload and the read-back.
 """
@@ -88,11 +91,30 @@ def profiled_pipe():
 
 @pytest.mark.parametrize("layer", engine.LAYERS)
 def test_profiled_step_shows_each_layer(layer, profiled_pipe):
-    _, (names, (spans, _)) = profiled_pipe
+    pipe, (names, (spans, _)) = profiled_pipe
     assert layer in names
-    per_block = len(CHANNELS) if layer in (engine.CHANNELIZE, engine.DEMOD) else 1
+    per_block = {engine.CHANNELIZE: len(CHANNELS), engine.DEMOD: len(pipe.groups)}.get(layer, 1)
+    assert len(pipe.groups) == 1  # the two channels share a kind, a depth and settings
     calls, seconds = spans[layer]
     assert calls == per_block * BLOCKS and seconds > 0
+
+
+#: the nfm16 traffic's raster, received at 625 kHz (1.25 MS/s ÷2): banks of
+#: 12 channels at depth 3 and 4 at depth 2
+NFM16 = tuple(-187_500.0 + 25_000.0 * k for k in range(16))
+
+
+@pytest.mark.parametrize("offsets,banked", [(NFM16, 16), (NFM16[:1], 0)],
+                         ids=["nfm16", "one"])
+def test_profiled_step_counts_banked_channels(offsets, banked):
+    pipe = engine.RxPipeline(
+        engine.DeviceConfig(1_250_000.0, log2_decim=1),
+        [engine.ChannelSpec(NFM, f, {"squelch_db": -60.0}) for f in offsets], "cpu",
+        block_size=32_768)
+    _run_pipe(pipe)
+    _, (_, counters) = _profiled(lambda: _run_pipe(pipe))
+    assert counters[engine.RX_CHANNELS] == len(offsets) * BLOCKS
+    assert counters.get(engine.RX_BANKED, 0) == banked * BLOCKS
 
 
 def test_profiled_upload_counts_fed_bytes(profiled_pipe):
