@@ -156,6 +156,8 @@ class Mesh:
         # the exchange buffers: on the card for NCCL, on the host for gloo
         self._wire = self.home if self.home.type == "cuda" else torch.device("cpu")
         self._held = {r: [k for k in self.coords if self.places[k].rank == r] for r in ranks}
+        # hostfeed's pinned staging rings, by local time row
+        self.staging: dict = {}
 
     @property
     def shape(self) -> dict:
