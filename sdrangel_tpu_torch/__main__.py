@@ -52,8 +52,7 @@ _CHANNEL_URIS = {
 def _parse_channel(spec: str) -> tuple[str, float]:
     kind, _, rest = spec.partition(":")
     if kind not in _CHANNEL_URIS:
-        raise SystemExit(f"channel kind {kind!r} is not ported yet; ported: "
-                         f"{sorted(_CHANNEL_URIS)}")
+        raise SystemExit(f"unknown channel kind {kind!r}; known: {sorted(_CHANNEL_URIS)}")
     return _CHANNEL_URIS[kind], float(rest) if rest else 0.0
 
 
@@ -112,22 +111,13 @@ def cmd_demod(args) -> int:
         return st
 
     if args.infile:
-        from .io import native
-
         info, mm = sdriq.open_mmap(args.infile)
         rate = float(info.sample_rate)
         total = info.n_samples
         input_format = "i16" if info.sample_size == 16 else "i24"
-        # a 16-bit capture through the C++ loader when it builds (a 24-bit
-        # one keeps its 24 bits through the memmap)
-        if input_format == "i16" and native.available():
-            nf = native.NativeSdriq(args.infile)
 
-            def source(b, count):
-                return nf.read_i16(b * count, count)
-        else:
-            def source(b, count):
-                return sdriq.read_block(mm, b * count, count)
+        def source(b, count):
+            return sdriq.read_block(mm, b * count, count)
     else:
         rate = args.rate
         input_format = "i16"
@@ -203,8 +193,7 @@ def cmd_mod(args) -> int:
 
     kind, _, rest = args.channel.partition(":")
     if kind not in _MOD_URIS:
-        raise SystemExit(f"modulator kind {kind!r} is not ported yet; ported: "
-                         f"{sorted(_MOD_URIS)}")
+        raise SystemExit(f"unknown modulator kind {kind!r}; known: {sorted(_MOD_URIS)}")
     sink = TxDeviceConfig(sample_rate=args.rate, log2_interp=args.log2_interp)
     pipe = TxPipeline(sink, [TxChannelSpec(_MOD_URIS[kind], float(rest) if rest else 0.0, {})],
                       BLOCK_AF, torch.device(args.device))

@@ -412,8 +412,6 @@ class ApiHandler(BaseHTTPRequestHandler):
                     )
                 return self._json(200, resp)
             return self._error(404, f"unknown path {p}")
-        except NotImplementedError as e:
-            return self._error(501, str(e))
         except (IndexError, KeyError) as e:
             return self._error(404, f"not found: {e}")
 
@@ -497,8 +495,6 @@ class ApiHandler(BaseHTTPRequestHandler):
                 )
                 return self._json(200, {"exported": body["filePath"]})
             return self._error(404, f"unknown path {p}")
-        except NotImplementedError as e:
-            return self._error(501, str(e))
         except (_BadRequest, ValueError) as e:
             return self._error(400, str(e))
         except (IndexError, KeyError) as e:
@@ -651,8 +647,6 @@ class ApiHandler(BaseHTTPRequestHandler):
                         resp["fileName"] = log_path
                 return self._json(200, resp)
             return self._error(404, f"unknown path {p}")
-        except NotImplementedError as e:
-            return self._error(501, str(e))
         except (_BadRequest, ValueError) as e:
             return self._error(400, str(e))
         except (IndexError, KeyError) as e:

@@ -3,9 +3,10 @@ channel kinds keyed by the reference's URIs. The port registers the NFM,
 AM, SSB, WFM and broadcast FM receivers and the data channels (channel
 analyzer, LoRa, DSD, ATV, DATV and UDPSrc) in REGISTRY, and the NFM, AM, SSB
 and WFM modulators of the Tx device sets in TX_KINDS (runtime/tx.py holds
-their modulate functions). A kind or a session key the port does not carry
-yet would stand in UNPORTED_KINDS or UNPORTED_KEYS with its ROADMAP item;
-both are empty now.
+their modulate functions). The channel banks are decided here, for the
+pipelines, the session and the bank gear: which kinds bank (`bankable`),
+which channels share a bank (`bank_groups`), what binds each per-block
+field (`DYN_FIELDS`).
 
 The session and the REST server read the settable fields from here: each
 kind's schema is derived from its config dataclass, so it cannot drift from
@@ -14,7 +15,7 @@ the code."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Iterable
 
 import math
 from fractions import Fraction
@@ -31,14 +32,13 @@ class ChannelKind:
     config_cls: type
     make_state: Callable[..., Any]
     process: Callable[..., Any]
-    # "audio" (48 kHz demod) or "data" (symbols, video, I/Q); the bank gear
-    # takes audio kinds only
+    # "audio" (48 kHz demod) or "data" (symbols, video, I/Q)
     output: str = "audio"
     # the demod runs an fftfilt of its config's `fft_len`, so the block
     # must hold whole hops of it
     needs_fft_hop: bool = False
-    # process kwargs a caller may override per block ("offset_hz",
-    # "squelch_db", "volume"), the applySettings-on-a-running-channel path
+    # process kwargs a caller may override per block (of DYN_FIELDS), the
+    # applySettings-on-a-running-channel path
     dynamic_fields: frozenset = frozenset()
     # (new_state, cfg, dyn) -> report meters from the channel's own state
     meters: Callable[[Any, Any, dict], dict] | None = None
@@ -56,6 +56,40 @@ class ChannelKind:
     # report sections the session adds on the host ("dsd": the frame sync,
     # "datv": the DVB-S FEC and TS demux)
     host_report_keys: tuple = ()
+
+    @property
+    def bankable(self) -> bool:
+        """The kind runs its channels as a bank, one `process` over their
+        stacked inputs: an audio output whose offset is a per-block argument."""
+        return self.output == "audio" and "offset_hz" in self.dynamic_fields
+
+    def bound_dyn(self, cfg) -> dict[str, float]:
+        """The kind's per-block fields as a bound config `cfg` sets them."""
+        return {f: float(getattr(cfg, attr)) for f, attr in DYN_FIELDS.items()
+                if f in self.dynamic_fields}
+
+
+#: the per-block fields a kind may take, each with the config attribute that
+#: binds it; every one but the offset is also the channel setting of its name
+DYN_FIELDS = {"offset_hz": "input_offset", "squelch_db": "squelch_db", "volume": "volume"}
+
+
+def bank_groups(channels: Iterable[tuple[str, int, dict]]) -> list[tuple[int, ...]]:
+    """channels: (uri, plan depth, settings) each. The groups that run one
+    batched call, as tuples of channel indices in the order of each group's
+    first channel: one uri, one depth and settings equal under `==` (-60
+    and -60.0 alike). A channel of an Rx kind that is not `bankable` runs
+    alone; a modulator always groups."""
+    keys, groups = [], []
+    for i, (uri, depth, settings) in enumerate(channels):
+        kind = REGISTRY.get(uri)
+        key = (uri, depth, settings) if kind is None or kind.bankable else i
+        if key in keys:
+            groups[keys.index(key)].append(i)
+        else:
+            keys.append(key)
+            groups.append([i])
+    return [tuple(idxs) for idxs in groups]
 
 
 REGISTRY: dict[str, ChannelKind] = {}
@@ -87,11 +121,6 @@ _PIPELINE_FIELDS = {"channel_rate", "input_offset", "block_in", "block_af"}
 SESSION_KEYS = {"inputFrequencyOffset", "audioFile", "audioUdp", "audioRtp", "toneFrequency",
                 "afUdp", "afFile", "cwText", "cwWpm", "datvContinuous", "udpAddress",
                 "udpPort", "udpFormat"}
-
-#: the JAX package's channel kinds that the port does not carry yet
-UNPORTED_KINDS: dict[str, str] = {}
-#: the JAX session's per-channel keys that the port does not carry yet
-UNPORTED_KEYS: dict[str, str] = {}
 
 
 def get_demod(uri: str) -> ChannelKind:
@@ -131,24 +160,15 @@ def requested_rate(uri: str, settings: dict) -> float:
 
 
 def check_kind(uri: str, direction: str = "rx") -> None:
-    """NotImplementedError for a kind the port does not carry yet (with its
-    ROADMAP item), KeyError for a kind no device set of `direction` takes."""
-    if uri in UNPORTED_KINDS:
-        raise NotImplementedError(f"{uri} is not ported yet: {UNPORTED_KINDS[uri]}")
+    """KeyError for a kind no device set of `direction` takes."""
     if uri not in (TX_KINDS if direction == "tx" else REGISTRY):
         raise KeyError(f"{uri} is no {direction} channel kind")
 
 
 def validate_settings(uri: str, settings: dict, direction: str = "rx") -> None:
     """Reject unknown setting keys up front (ValueError) rather than inside
-    the worker at pipeline build; a key the port does not carry yet raises
-    NotImplementedError naming its ROADMAP item."""
+    the worker at pipeline build."""
     check_kind(uri, direction)
-    left_out = sorted(set(settings) & set(UNPORTED_KEYS))
-    if left_out:
-        raise NotImplementedError(
-            f"channel settings {left_out} are not ported yet: "
-            + "; ".join(sorted({UNPORTED_KEYS[k] for k in left_out})))
     allowed = set(settings_schema(uri)) | SESSION_KEYS
     unknown = set(settings) - allowed
     if unknown:
@@ -175,7 +195,7 @@ def report_schema(uri: str) -> dict:
     return {"type": "object", "properties": props}
 
 
-_FULL_DYN = frozenset({"offset_hz", "squelch_db", "volume"})
+_FULL_DYN = frozenset(DYN_FIELDS)
 
 register(ChannelKind(
     "sdrangel.channel.nfmdemod", demod_nfm.NFMConfig, demod_nfm.make_state,

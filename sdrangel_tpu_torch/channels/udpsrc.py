@@ -5,7 +5,7 @@ Reference: plugins/channelrx/udpsrc/udpsrc.{h,cpp}: NCO mix → resample to
 the output rate → optional AGC → a branch per format (I/Q, mono, LSB/USB
 through fftfilt, the NFM discriminator, the AM magnitude; udpsrc.h:200-313)
 → UDPSink datagrams. This is the device part: the formatted stream of each
-block. Sending it over UDP is the egress of ROADMAP.md queue 1, item 12.
+block. The session sends it over UDP (runtime/session.py, io/udp.py).
 """
 
 from __future__ import annotations

@@ -3,9 +3,8 @@
 The loader maps the capture and copies wrapped block reads out of it in C++
 (int16 straight, 24-bit shifted to 16, or scaled to float32), the role of
 the reference's file source thread (filesourcethread.cpp:188-195). It is
-host I/O, not a kernel: `python -m sdrangel_tpu_torch demod --in` reads a
-16-bit capture through it when it builds, and through the NumPy memmap
-(io/sdriq.py) otherwise, as the JAX package's CLI does.
+host I/O, not a kernel, and library code: `python -m sdrangel_tpu_torch
+demod --in` reads captures through the NumPy memmap (io/sdriq.py).
 
 The port builds the same source as the JAX package (sdrangel_tpu/io/native.py)
 with g++ into its git-ignored kernels/_build/, under a name keyed on a hash

@@ -51,7 +51,8 @@ from ..dsp.hbfilter import DECIMATORS_ORDER
 from ..dsp.types import iq_raw_to_complex64
 from ..kernels.flat_decimate_tc import flat_decimate_tc
 from ..runtime import tracing
-from ..runtime.engine import _from_numpy, _to_numpy, pin_f32_precision, resolve_device
+from ..runtime.engine import pin_f32_precision, resolve_device
+from ..runtime.state import tree_from_numpy, tree_map, tree_to_numpy
 from .mesh import Mesh, make_mesh
 
 NFM_URI = "sdrangel.channel.nfmdemod"
@@ -226,9 +227,9 @@ def _validate_bank(cfg: ShardedPipelineConfig) -> None:
         kind = REGISTRY.get(g.uri)
         if kind is None:
             raise ValueError(f"unknown channel kind {g.uri!r}")
-        if kind.output != "audio":
-            raise ValueError(f"the bank gear supports audio kinds; {g.uri} is data")
-        if "offset_hz" not in kind.dynamic_fields:
+        if not kind.bankable:
+            if kind.output != "audio":
+                raise ValueError(f"the bank gear supports audio kinds; {g.uri} is data")
             raise ValueError(f"{g.uri} does not take offset_hz per block")
         if g.count % cfg.n_channel:
             raise ValueError(f"group {g.uri} count {g.count} must be a multiple of the "
@@ -280,19 +281,6 @@ class GearState:
 
     units: dict
     pfb: dict
-
-
-def _tree_map(fn, *trees):
-    first = trees[0]
-    if isinstance(first, torch.Tensor):
-        return fn(*trees)
-    if hasattr(first, "_fields"):
-        return type(first)(*(_tree_map(fn, *parts) for parts in zip(*trees)))
-    if isinstance(first, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
-    if isinstance(first, (list, tuple)):
-        return type(first)(_tree_map(fn, *parts) for parts in zip(*trees))
-    raise TypeError(f"unexpected state node {type(first)}")
 
 
 def _mesh_of(cfg: ShardedPipelineConfig, target) -> Mesh:
@@ -638,16 +626,16 @@ def state_from_numpy(cfg: ShardedPipelineConfig, tree, carry, mesh: Mesh | torch
     gear = _Gear(cfg, mesh, split)
     cpu = torch.device("cpu")
     groups_np = tree[0] if (cfg.pfb_m and not a2a) else tree
-    groups = _from_numpy(_group_state_structure(cfg, cpu), groups_np)
+    groups = tree_from_numpy(_group_state_structure(cfg, cpu), groups_np)
     units = {}
     for chunk, k in gear.units:
         dev = mesh.device(k)
         units[chunk, k] = tuple(
-            _tree_map(lambda v, n=n: v[chunk * n:(chunk + 1) * n].to(dev), grp)
+            tree_map(lambda v, n=n: v[chunk * n:(chunk + 1) * n].to(dev), grp)
             for grp, n in zip(groups, gear.per_chunk))
     pfb = {}
     if cfg.pfb_m and not a2a:
-        tail = _from_numpy(pfbmod.make_state(cfg.pfb_m, cpu, cfg.pfb_taps), tree[1])
+        tail = tree_from_numpy(pfbmod.make_state(cfg.pfb_m, cpu, cfg.pfb_taps), tree[1])
         pfb = {k: pfbmod.PfbState(tail.tail.to(mesh.device(k))) for k in mesh.local}
     casc = _raw_carry(carry[0] if a2a else carry).to(mesh.home)
     if a2a:
@@ -674,10 +662,10 @@ def state_to_numpy(state: GearState, carry):
     if sorted(per_chunk) != list(range(len(per_chunk))):
         raise ValueError(f"this process holds chunks {sorted(per_chunk)}, not all of them")
     chunks = [per_chunk[c] for c in range(len(per_chunk))]
-    joined = _tree_map(lambda *vs: torch.cat([v.cpu() for v in vs]), *chunks)
-    tree = _to_numpy(joined)
+    joined = tree_map(lambda *vs: torch.cat([v.cpu() for v in vs]), *chunks)
+    tree = tree_to_numpy(joined)
     if state.pfb:
-        tree = (tree, _to_numpy(next(iter(state.pfb.values()))))
+        tree = (tree, tree_to_numpy(next(iter(state.pfb.values()))))
 
     def raw(c):
         a = c.cpu().numpy().astype(np.float32) / 32768.0

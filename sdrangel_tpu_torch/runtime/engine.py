@@ -15,6 +15,7 @@ is one copy (`fetch`), however many channels and meters the block holds.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from fractions import Fraction
 from typing import Any
@@ -22,13 +23,14 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..channels.registry import REGISTRY
+from ..channels.registry import REGISTRY, ChannelKind, bank_groups
 from ..dsp import channelizer as chan
 from ..dsp import decimators as dec
 from ..dsp import scope as dsp_scope
 from ..dsp import spectrum as dsp_spectrum
 from ..dsp.types import INPUT_FORMATS, iq_raw_to_complex64
 from . import corrections, tracing
+from .state import tree_from_numpy, tree_map, tree_to_numpy
 
 #: the step's layers, each a tracing span (a torch.profiler range while a
 #: profiler runs), so that a profiled run splits the step's time by layer
@@ -89,6 +91,68 @@ class ChannelSpec:
     requested_rate: float = 48000.0  # bandwidth the demod wants from the channelizer
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class DemodGroup:
+    """Channels that run one demod `process` (`registry.bank_groups`): a
+    bank, whose state, input and arguments stack its channels' on a leading
+    axis, or one channel alone, run as a one-channel pipeline runs it."""
+
+    idxs: tuple[int, ...]  # the channels, in the pipeline's order
+    kind: ChannelKind
+    cfgs: tuple  # each channel's bound config
+
+    @property
+    def batched(self) -> bool:
+        return len(self.idxs) > 1
+
+    @functools.cached_property
+    def cfg(self):
+        """The group's config; a bank's has `input_offset` as the float64 array
+        of its channels' residual offsets, which each kind's NCO turns into
+        per-channel increments by the host function of one channel's."""
+        if not self.batched:
+            return self.cfgs[0]
+        return dataclasses.replace(
+            self.cfgs[0], input_offset=np.array([c.input_offset for c in self.cfgs]))
+
+    def make_state(self, device: torch.device):
+        return self.kind.make_state(self.cfg, device,
+                                    *([(len(self.idxs),)] if self.batched else []))
+
+    def rows(self, tree: Any) -> list:
+        """Each channel's part of a group state: a bank's rows as views."""
+        if not self.batched:
+            return [tree]
+        return [tree_map(lambda x, j=j: x[j], tree) for j in range(len(self.idxs))]
+
+    def stack(self, trees: list) -> Any:
+        """Per-channel states or inputs as the group's."""
+        return tree_map(lambda *rows: torch.stack(rows), *trees) if self.batched else trees[0]
+
+    def block_args(self, dyn: list[dict] | None, device: torch.device) -> dict:
+        """The `process` kwargs from the per-channel overrides `dyn` (see
+        `RxPipeline.default_dyn`); a bank's as one (C,) float32 tensor a field
+        on `device`, a field some channels leave out at its bound value."""
+        if dyn is None:
+            return {}
+        if not self.batched:
+            return dict(dyn[self.idxs[0]])
+        rows = [dyn[i] for i in self.idxs]
+        fields = set().union(*rows)
+        if any(fields - row.keys() for row in rows):
+            rows = [dict(self.kind.bound_dyn(c), **row) for c, row in zip(self.cfgs, rows)]
+        return {field: torch.tensor([float(row[field]) for row in rows],
+                                    dtype=torch.float32).to(device, non_blocking=True)
+                for field in sorted(fields)}
+
+    def entries(self, entry: dict) -> list[dict]:
+        """Each channel's entry of the group's outputs: a bank's rows."""
+        if not self.batched:
+            return [entry]
+        rows = {k: v.unbind(0) for k, v in entry.items()}
+        return [{k: v[j] for k, v in rows.items()} for j in range(len(self.idxs))]
+
+
 class RxPipeline:
     """The per-block Rx step on one torch device.
 
@@ -124,7 +188,11 @@ class RxPipeline:
             if any(f.name == "block_in" for f in dataclasses.fields(kind.config_cls)):
                 kw["block_in"] = self.base_block >> len(plan.signs)
             self.demod_cfgs.append(kind.config_cls(**kw))
-        self._group_channels()
+        self.groups = [
+            DemodGroup(idxs, self.kinds[idxs[0]], tuple(self.demod_cfgs[i] for i in idxs))
+            for idxs in bank_groups(
+                (c.uri, len(p.signs), c.settings) for c, p in zip(channels, self.plans))]
+        self.n_banked = sum(len(g.idxs) for g in self.groups if g.batched)
         self.spectrum_cfg = spectrum_cfg or dsp_spectrum.SpectrumConfig(
             fft_size=1024, averaging_mode="moving", averaging_n=8)
         # i16 cen capture without corrections: the raw int16 block goes
@@ -134,29 +202,6 @@ class RxPipeline:
             and frontend.log2_decim > 0
             and not frontend.dc_correction and not frontend.iq_correction
         )
-
-    def _group_channels(self) -> None:
-        """The demod groups, in order of their first channel: channels of an
-        audio kind that takes its offset per block (the kinds the bank gear
-        runs), at one plan depth — so one channel rate — and with one
-        settings dict run as a bank, one `process` call over their stacked
-        inputs; every other channel is a group of its own. A bank's config
-        is its channels' config with `input_offset` as the float64 array of
-        their residual offsets, which each kind's NCO turns into per-channel
-        increments through the same host function as one channel's."""
-        keys: dict[tuple, list[int]] = {}
-        for i, (spec, plan, kind) in enumerate(zip(self.channel_specs, self.plans, self.kinds)):
-            bankable = kind.output == "audio" and "offset_hz" in kind.dynamic_fields
-            key = ((spec.uri, len(plan.signs), repr(sorted(spec.settings.items())))
-                   if bankable else (i,))
-            keys.setdefault(key, []).append(i)
-        self.groups = [tuple(idxs) for idxs in keys.values()]
-        self.group_cfgs = [
-            self.demod_cfgs[idxs[0]] if len(idxs) == 1 else dataclasses.replace(
-                self.demod_cfgs[idxs[0]],
-                input_offset=np.array([self.plans[i].residual_offset for i in idxs]))
-            for idxs in self.groups]
-        self.n_banked = sum(len(idxs) for idxs in self.groups if len(idxs) > 1)
 
     def _solve_block_size(self, requested: int | None) -> int:
         """Baseband block length divisible as every stage needs: ×4 for the
@@ -210,23 +255,16 @@ class RxPipeline:
             ),
             "chan": [chan.init_state(len(p.signs), self.device) for p in self.plans],
             # one a group: a bank's state stacks its channels' states
-            "demod": [
-                self.kinds[idxs[0]].make_state(
-                    cfg, self.device, *([(len(idxs),)] if len(idxs) > 1 else []))
-                for idxs, cfg in zip(self.groups, self.group_cfgs)
-            ],
+            "demod": [g.make_state(self.device) for g in self.groups],
         }
 
     def channel_states(self, state: dict) -> list:
         """Each channel's demod state, in the channels' order: a bank's rows
         as views of its stacked state."""
         per = [None] * len(self.channel_specs)
-        for idxs, dstate in zip(self.groups, state["demod"]):
-            if len(idxs) == 1:
-                per[idxs[0]] = dstate
-            else:
-                for j, i in enumerate(idxs):
-                    per[i] = _tree_map(lambda x, j=j: x[j], dstate)
+        for g, dstate in zip(self.groups, state["demod"]):
+            for i, row in zip(g.idxs, g.rows(dstate)):
+                per[i] = row
         return per
 
     def state_from_numpy(self, tree: dict) -> dict:
@@ -239,31 +277,19 @@ class RxPipeline:
         that came from int16). The channels' demod states, one a channel
         as JAX keeps them, are stacked into their banks."""
         init = self.init_state()
-        per = _from_numpy(dict(init, demod=self.channel_states(init)), tree)
-        return dict(per, demod=[
-            per["demod"][idxs[0]] if len(idxs) == 1 else _tree_map(
-                lambda *rows: torch.stack(rows), *(per["demod"][i] for i in idxs))
-            for idxs in self.groups])
+        per = tree_from_numpy(dict(init, demod=self.channel_states(init)), tree)
+        return dict(per, demod=[g.stack([per["demod"][i] for i in g.idxs])
+                                for g in self.groups])
 
     def state_to_numpy(self, state: dict) -> dict:
         """This pipeline's state as numpy in the JAX package's field types:
         NCO phases as uint32, the int16 raw tail as the complex64 tail, and
         one demod state a channel, in the channels' order."""
-        return _to_numpy(dict(state, demod=self.channel_states(state)))
+        return tree_to_numpy(dict(state, demod=self.channel_states(state)))
 
     def default_dyn(self) -> list[dict]:
         """Per-channel overrides initialized from the bound configs."""
-        dyn = []
-        for kind, cfg in zip(self.kinds, self.demod_cfgs):
-            d = {}
-            if "offset_hz" in kind.dynamic_fields:
-                d["offset_hz"] = float(cfg.input_offset)
-            if "squelch_db" in kind.dynamic_fields:
-                d["squelch_db"] = float(cfg.squelch_db)
-            if "volume" in kind.dynamic_fields:
-                d["volume"] = float(cfg.volume)
-            dyn.append(d)
-        return dyn
+        return [kind.bound_dyn(cfg) for kind, cfg in zip(self.kinds, self.demod_cfgs)]
 
     # -- the step ------------------------------------------------------------
 
@@ -294,32 +320,24 @@ class RxPipeline:
 
         n = len(self.channel_specs)
         chan_states, demod_states, outs = [None] * n, [], [None] * n
-        for g, (idxs, cfg) in enumerate(zip(self.groups, self.group_cfgs)):
-            kind = self.kinds[idxs[0]]
-            ys = []
-            for i in idxs:
+        for g, dstate in zip(self.groups, state["demod"]):
+            kind, cfg, ys = g.kind, g.cfg, []
+            for i in g.idxs:
                 with tracing.span(CHANNELIZE):
                     chan_states[i], y = chan.channelize(state["chan"][i], bb, self.plans[i])
                 ys.append(y)
             with tracing.span(DEMOD):
-                if len(idxs) == 1:
-                    d = dict(dyn[idxs[0]]) if dyn is not None else {}
-                else:  # the bank: its channels as the rows of one block
-                    y = torch.stack(ys)
-                    d = self._bank_dyn(idxs, dyn) if dyn is not None else {}
-                dstate, result = kind.process(state["demod"][g], y, cfg, **d)
+                y = g.stack(ys)  # a bank's channels as the rows of one block
+                d = g.block_args(dyn, self.device)
+                dstate, result = kind.process(dstate, y, cfg, **d)
                 entry = ({"data": kind.adapter(result)} if kind.output == "data"
                          else {"audio": result})
                 # channel power meter (nfmdemod.h:153-170 magsq average)
                 entry["power"] = torch.mean(y.real ** 2 + y.imag ** 2, dim=-1)
                 if kind.meters is not None:
                     entry.update(kind.meters(dstate, cfg, d))
-                if len(idxs) == 1:
-                    outs[idxs[0]] = entry
-                else:  # each channel's entry: its rows of the bank's outputs
-                    rows = {k: v.unbind(0) for k, v in entry.items()}
-                    for j, i in enumerate(idxs):
-                        outs[i] = {k: v[j] for k, v in rows.items()}
+                for i, e in zip(g.idxs, g.entries(entry)):
+                    outs[i] = e
             demod_states.append(dstate)
         tracing.count(RX_CHANNELS, n)
         tracing.count(RX_BANKED, self.n_banked)
@@ -338,17 +356,6 @@ class RxPipeline:
             "demod": demod_states, "spectrum": spec_state,
         }
         return new_state, {"channels": outs, "spectrum": bb_spectrum, "scope": scope}
-
-    def _bank_dyn(self, idxs: tuple[int, ...], dyn: list[dict]) -> dict:
-        """A bank's per-channel overrides as one (C,) float32 tensor a field
-        on the pipeline's device, as the bank gear passes its offsets; a
-        field that some of its channels leave out takes their bound
-        config's value (`default_dyn`)."""
-        fields = {f for i in idxs for f in dyn[i]}
-        defaults = self.default_dyn() if any(fields - dyn[i].keys() for i in idxs) else None
-        return {field: torch.tensor(
-            [float(dyn[i][field] if field in dyn[i] else defaults[i][field]) for i in idxs],
-            dtype=torch.float32).to(self.device, non_blocking=True) for field in sorted(fields)}
 
     # -- packed outputs ------------------------------------------------------
 
@@ -498,59 +505,3 @@ def _config_field(config_cls: type, settings: dict, name: str):
     if name in settings:
         return settings[name]
     return next(f.default for f in dataclasses.fields(config_cls) if f.name == name)
-
-
-def _tree_map(fn, *trees: Any) -> Any:
-    """fn over the tensors of states of one structure (NamedTuples, dicts,
-    lists and tuples of tensors)."""
-    first = trees[0]
-    if isinstance(first, torch.Tensor):
-        return fn(*trees)
-    if isinstance(first, dict):
-        return {k: _tree_map(fn, *(tr[k] for tr in trees)) for k in first}
-    if hasattr(first, "_fields"):
-        return type(first)(*(_tree_map(fn, *leaves) for leaves in zip(*trees)))
-    if isinstance(first, (list, tuple)):
-        return type(first)(_tree_map(fn, *leaves) for leaves in zip(*trees))
-    raise TypeError(f"unexpected state node {type(first)}")
-
-
-def _from_numpy(template: Any, value: Any) -> Any:
-    """`value` (a numpy tree) in the structure and dtypes of `template`."""
-    if isinstance(template, torch.Tensor):
-        a = np.asarray(value)
-        if template.dtype == torch.int16 and np.iscomplexobj(a):  # fused-ingest tail
-            a = np.round(np.stack([a.real, a.imag], axis=-1) * 32768.0)
-        np_dtype = torch.empty(0, dtype=template.dtype).numpy().dtype
-        t = torch.from_numpy(np.array(a, dtype=np_dtype, order="C")).to(template.device)
-        if t.shape != template.shape:
-            raise ValueError(f"state field shape {tuple(t.shape)}, expected {tuple(template.shape)}")
-        return t
-    if isinstance(template, dict):
-        return {k: _from_numpy(v, value[k]) for k, v in template.items()}
-    if hasattr(template, "_fields"):  # NamedTuple state: match fields by name
-        return type(template)(*(
-            _from_numpy(getattr(template, f), getattr(value, f)) for f in template._fields))
-    if isinstance(template, (list, tuple)):
-        if len(template) != len(value):
-            raise ValueError(f"state has {len(value)} entries, expected {len(template)}")
-        return type(template)(_from_numpy(t, v) for t, v in zip(template, value))
-    raise TypeError(f"unexpected state node {type(template)}")
-
-
-def _to_numpy(state: Any) -> Any:
-    if isinstance(state, torch.Tensor):
-        a = state.cpu().numpy()
-        if a.dtype == np.int16:  # the fused-ingest raw tail
-            return (a[..., 0].astype(np.float32) / 32768.0
-                    + 1j * (a[..., 1].astype(np.float32) / 32768.0)).astype(np.complex64)
-        if a.dtype == np.int64:  # NCO phase wheel
-            return a.astype(np.uint32)
-        return a
-    if isinstance(state, dict):
-        return {k: _to_numpy(v) for k, v in state.items()}
-    if hasattr(state, "_fields"):
-        return type(state)(*(_to_numpy(v) for v in state))
-    if isinstance(state, (list, tuple)):
-        return type(state)(_to_numpy(v) for v in state)
-    raise TypeError(f"unexpected state node {type(state)}")

@@ -554,8 +554,9 @@ class DeviceSet:
             self._gen += 1
 
     #: channel settings whose live changes reach the pipeline per block,
-    #: where the kind takes them as per-block overrides
-    _DYN_SETTINGS = frozenset({"squelch_db", "volume"})
+    #: where the kind takes them as per-block overrides: the per-block
+    #: fields but the offset, which comes from the channel plan
+    _DYN_SETTINGS = frozenset(registry.DYN_FIELDS) - {"offset_hz"}
 
     def update_channel(self, index: int, settings: dict) -> None:
         """Apply channel settings; a running pipeline takes them at the next
@@ -714,20 +715,16 @@ class DeviceSet:
         """Per-channel overrides from the live settings (caller holds the
         lock), and whether a retune left its channelizer passband, which the
         NCO cannot absorb (downchannelizer.cpp applyConfiguration)."""
-        dyn, rebuild = [], False
-        for i, ch in enumerate(self.channels):
-            kind, cfg = pipe.kinds[i], pipe.demod_cfgs[i]
-            d = {}
-            if "offset_hz" in kind.dynamic_fields:
+        dyn, rebuild = pipe.default_dyn(), False
+        for i, (ch, d) in enumerate(zip(self.channels, dyn)):
+            if "offset_hz" in d:
                 delta = ch.frequency_offset - pipe.channel_specs[i].frequency_offset
                 if abs(delta) > 0.25 * pipe.plans[i].channel_rate:
                     rebuild = True
-                d["offset_hz"] = float(cfg.input_offset + delta)
-            if "squelch_db" in kind.dynamic_fields:
-                d["squelch_db"] = float(ch.settings.get("squelch_db", cfg.squelch_db))
-            if "volume" in kind.dynamic_fields:
-                d["volume"] = float(ch.settings.get("volume", cfg.volume))
-            dyn.append(d)
+                d["offset_hz"] = float(pipe.demod_cfgs[i].input_offset + delta)
+            for k in self._DYN_SETTINGS & d.keys():
+                if k in ch.settings:
+                    d[k] = float(ch.settings[k])
         return dyn, rebuild
 
     def _work(self) -> None:
@@ -904,30 +901,25 @@ class DeviceSet:
         """The channels as the bank's homogeneous groups (kind and settings
         alike): (groups, chmap), chmap[g] the channel indices of group g's
         rows, in order (caller holds the lock)."""
-        order, by_key = [], {}
         for idx, ch in enumerate(self.channels):
             kind = REGISTRY.get(ch.uri)
-            if kind is None or kind.output != "audio":
-                raise ValueError(f"sharded device sets support audio channel kinds; "
-                                 f"channel {idx} is {ch.uri}")
-            if "offset_hz" not in kind.dynamic_fields:
+            if kind is None or not kind.bankable:
+                if kind is None or kind.output != "audio":
+                    raise ValueError(f"sharded device sets support audio channel kinds; "
+                                     f"channel {idx} is {ch.uri}")
                 raise ValueError(f"{ch.uri} cannot run sharded (its offset is not a "
                                  f"per-block argument)")
-            st = {k: v for k, v in ch.settings.items() if k not in registry.SESSION_KEYS}
-            key = (ch.uri, tuple(sorted(st.items())))
-            if key not in by_key:
-                by_key[key] = []
-                order.append(key)
-            by_key[key].append(idx)
-        groups, chmap = [], []
-        for key in order:
-            idxs = by_key[key]
+        settings = [{k: v for k, v in ch.settings.items() if k not in registry.SESSION_KEYS}
+                    for ch in self.channels]
+        # the gear runs every channel at one depth
+        chmap = registry.bank_groups((ch.uri, 0, st) for ch, st in zip(self.channels, settings))
+        for idxs in chmap:
             if len(idxs) % n_channel:
-                raise ValueError(f"{key[0]}: {len(idxs)} channels with identical settings "
-                                 f"needed in multiples of the mesh channel axis {n_channel}")
-            groups.append(shmod.BankGroup(key[0], len(idxs), dict(key[1])))
-            chmap.append(idxs)
-        return tuple(groups), chmap
+                raise ValueError(f"{self.channels[idxs[0]].uri}: {len(idxs)} channels with "
+                                 f"identical settings needed in multiples of the mesh channel "
+                                 f"axis {n_channel}")
+        return tuple(shmod.BankGroup(self.channels[idxs[0]].uri, len(idxs), settings[idxs[0]])
+                     for idxs in chmap), chmap
 
     def _work_sharded(self) -> None:
         """The sharded engine thread: the mesh gear as the set's acquisition
@@ -1557,7 +1549,6 @@ class Session:
                 # settings renamed or removed since the preset was saved drop
                 # (API PUTs stay strict)
                 allowed = set(registry.settings_schema(ch["uri"])) | registry.SESSION_KEYS
-                allowed |= set(registry.UNPORTED_KEYS)  # kept, so they raise below
                 settings = {k: v for k, v in ch["settings"].items() if k in allowed}
                 settings["inputFrequencyOffset"] = ch["inputFrequencyOffset"]
                 registry.validate_settings(ch["uri"], settings, direction)

@@ -22,7 +22,8 @@ from ..channels import modulators as mods
 from ..channels import registry
 from ..dsp import channelizer as chan
 from ..dsp import interpolators as interp
-from .engine import _from_numpy, _to_numpy, fetch, pin_f32_precision, resolve_device
+from .engine import fetch, pin_f32_precision, resolve_device
+from .state import tree_from_numpy, tree_to_numpy
 
 #: AF samples per block at 48 kHz (the JAX Tx session's fixed block)
 BLOCK_AF = 4096
@@ -98,16 +99,13 @@ class TxPipeline:
                 block_af=block_af, **spec.settings)
             cfg.up  # the interpolation schedule: a rate the block cannot hold raises here
             self.mod_cfgs.append(cfg)
-        groups: dict[tuple, list[int]] = {}
-        for i, (spec, plan) in enumerate(zip(channels, self.plans)):
-            key = (spec.uri, len(plan.signs), tuple(sorted(spec.settings.items())))
-            groups.setdefault(key, []).append(i)
         self.groups = [
-            _Group(tuple(idxs), dataclasses.replace(self.mod_cfgs[idxs[0]], input_offset=0.0),
+            _Group(idxs, dataclasses.replace(self.mod_cfgs[idxs[0]], input_offset=0.0),
                    *MOD_FUNCS[channels[idxs[0]].uri],
                    np.array([self.plans[i].signs for i in idxs], np.int64).reshape(len(idxs), -1),
                    np.asarray([self.plans[i].residual_offset for i in idxs], np.float32))
-            for idxs in groups.values()]
+            for idxs in registry.bank_groups(
+                (c.uri, len(p.signs), c.settings) for c, p in zip(channels, self.plans))]
         dev = self.device
         self._rows = [torch.tensor(g.idxs, device=dev) for g in self.groups]
         self._residuals = [torch.from_numpy(g.residuals).to(dev) for g in self.groups]
@@ -135,12 +133,12 @@ class TxPipeline:
         jax.tree.map(np.asarray, state)) as this pipeline's state: the
         modulator states, the UpChannelizer tails and the device tails,
         matched by name against `init_state()`."""
-        return _from_numpy(self.init_state(), tree)
+        return tree_from_numpy(self.init_state(), tree)
 
     def state_to_numpy(self, state: dict) -> dict:
         """This pipeline's state as numpy in the JAX package's field types
         (NCO phases as uint32)."""
-        return _to_numpy(state)
+        return tree_to_numpy(state)
 
     def step(self, state: dict, af: torch.Tensor) -> tuple[dict, torch.Tensor]:
         """af: (channels, block_af) float32 on the pipeline's device, one row

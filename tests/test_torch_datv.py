@@ -211,7 +211,7 @@ def test_registry_datv_as_in_jax():
         assert getattr(pk, field) == getattr(jk, field), field
     assert preg.settings_schema(DATV) == jreg.settings_schema(DATV)
     assert preg.report_schema(DATV) == jreg.report_schema(DATV)
-    assert DATV not in preg.UNPORTED_KINDS and not preg.UNPORTED_KINDS
+    assert DATV in preg.REGISTRY
     assert "datvContinuous" in preg.SESSION_KEYS
     preg.validate_settings(DATV, {"datvContinuous": True, "fec_rate": "3/4"})
     for settings in ({}, {"symbol_rate": 500_000.0}, {"symbol_rate": 125_000.0}):

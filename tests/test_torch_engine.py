@@ -273,7 +273,7 @@ def test_dyn_overrides_match_jax():
     squelch, offset) act as in the JAX step, each on its own row of the
     bank that the two NFM channels at one plan depth form."""
     jp, pp = _pipes(extra=(-100_000.0,))
-    assert pp.groups == [(0, 1)]
+    assert [g.idxs for g in pp.groups] == [(0, 1)]
     raws = np.clip(_blocks(pp, 2, 100_000.0).astype(np.int32)
                    + _blocks(pp, 2, -100_000.0), -32768, 32767).astype(np.int16)
     dyn = pp.default_dyn()
@@ -321,7 +321,7 @@ def _against_one_channel_pipelines(frontend, specs, groups, carriers, n_blocks=3
     one bit for bit, the NCO phases exact; its packed layout is that of the
     one-channel outputs in spec order. Returns the bank pipeline."""
     pipe = peng.RxPipeline(frontend, specs, CPU, block_size=32_768)
-    assert pipe.groups == groups
+    assert [g.idxs for g in pipe.groups] == groups
     assert pipe.n_banked == sum(len(g) for g in groups if len(g) > 1)
     ones = [peng.RxPipeline(frontend, [s], CPU, block_size=32_768) for s in specs]
     assert {p.device_block for p in ones} == {pipe.device_block}
@@ -386,6 +386,26 @@ def test_channels_group_by_kind_depth_and_settings():
     _against_one_channel_pipelines(
         peng.DeviceConfig(RATE, log2_decim=1), specs, [(0, 2, 4), (1,), (3,), (5,)],
         [(s.uri, s.frequency_offset) for s in specs if s.frequency_offset != 60_000.0])
+
+
+def test_settings_equal_under_eq_share_a_bank():
+    """`registry.bank_groups` compares settings with ==: NFM channels whose
+    squelch reads -60 and -60.0 bank, and the bank equals their one-channel
+    pipelines; equal list-valued settings group too; a kind that is not
+    bankable runs alone; a modulator always groups."""
+    from sdrangel_tpu_torch.channels.registry import bank_groups
+
+    cha, nfm_mod = "sdrangel.channel.chanalyzer", "sdrangel.channeltx.modnfm"
+    assert bank_groups([
+        (NFM, 2, {"squelch_db": -60}), (NFM, 2, {"squelch_db": -60.0}),
+        (NFM, 3, {"squelch_db": -60}), (AM, 2, {"squelch_db": -60}), (cha, 2, {}), (cha, 2, {}),
+        (NFM, 2, {"squelch_db": -60.0, "volume": 1.0}), (nfm_mod, 1, {"x": [1, 2]}),
+        (NFM, 2, {"squelch_db": -60.0}), (nfm_mod, 1, {"x": [1.0, 2]}),
+    ]) == [(0, 1, 8), (2,), (3,), (4,), (5,), (6,), (7, 9)]
+    specs = [peng.ChannelSpec(NFM, 100_000.0, {"squelch_db": -60}),
+             peng.ChannelSpec(NFM, -100_000.0, {"squelch_db": -60.0})]
+    _against_one_channel_pipelines(peng.DeviceConfig(RATE, log2_decim=1), specs, [(0, 1)],
+                                   [(s.uri, s.frequency_offset) for s in specs])
 
 
 def test_cli_demod_sdriq_capture_and_info(tmp_path, capsys):

@@ -219,7 +219,7 @@ def test_bank_pipeline_on_card_matches_cpu(cuda_device, live):
     cfg = peng.DeviceConfig(1_250_000.0, log2_decim=1)
     gpu = peng.RxPipeline(cfg, chans, cuda_device, block_size=32_768)
     cpu = peng.RxPipeline(cfg, chans, "cpu", block_size=32_768)
-    assert [len(g) for g in gpu.groups] == [12, 4]
+    assert [len(g.idxs) for g in gpu.groups] == [12, 4]
     tt = np.arange(3 * gpu.device_block) / cfg.sample_rate
     iq = sum(0.05 * np.exp(1j * (2 * np.pi * f * tt - 5.0 * np.cos(2 * np.pi * 1000.0 * tt)))
              for f in offsets[::2])

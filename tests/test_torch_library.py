@@ -10,16 +10,12 @@
   equal JAX's; `registry.get_demod` answers for every kind.
 - The native .sdriq loader (native/sdriq_loader.cc built with g++ into the
   port's build directory): its reads equal `sdriq.read_block` on 16- and
-  24-bit captures, wrapped reads included; the `demod --in` CLI through it
-  writes the WAV the memmap branch writes.
+  24-bit captures, wrapped reads included.
 """
 
 from __future__ import annotations
 
-import os
 import shutil
-import subprocess
-import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,7 +36,6 @@ from sdrangel_tpu_torch.io import native, sdriq
 from torch_port_util import CPU, n, t
 
 ATOL = 2e-5
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _iq_blocks(rng, n_blocks: int, size: int, batch=()) -> np.ndarray:
@@ -186,24 +181,3 @@ def test_native_loader_reads_equal_read_block(loader, tmp_path, sample_size):
         else:
             np.testing.assert_array_equal(nf.read_i16(start, count), (want >> 8).astype(np.int16))
     nf.close()
-
-
-def test_demod_cli_native_loader_writes_the_memmap_wav(loader, tmp_path):
-    """`demod --in` through the native loader and, with it made
-    unavailable, through the memmap: the same WAV bytes."""
-    iq = ptypes.np_tone(20_000.0, 192_000.0, 1 << 17, amp=0.5)
-    cap = str(tmp_path / "cap.sdriq")
-    sdriq.write(cap, iq, sample_rate=192000, center_frequency=0, sample_size=16, timestamp=0)
-    wavs = {}
-    for branch in ("native", "memmap"):
-        out = str(tmp_path / f"{branch}.wav")
-        code = (f"import sys; sys.argv = ['x', 'demod', '--device', 'cpu', '--in', {cap!r}, "
-                f"'--channel', 'nfm:20000', '--out', {out!r}, '--log2-decim', '1']\n"
-                + ("import sdrangel_tpu_torch.io.native as m; m.available = lambda: False\n"
-                   if branch == "memmap" else "")
-                + "from sdrangel_tpu_torch.__main__ import main; sys.exit(main())")
-        proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                              cwd=REPO, timeout=300)
-        assert proc.returncode == 0, proc.stderr[-2000:]
-        wavs[branch] = open(out, "rb").read()
-    assert wavs["native"] == wavs["memmap"] and len(wavs["native"]) > 44
