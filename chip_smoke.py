@@ -1958,10 +1958,10 @@ def data_layer_ms(pipe: RxPipeline, raw: np.ndarray) -> dict:
     layers = {"upload": lambda: pipe.upload(raw),
               "K1": lambda: dec.decimate_flat_raw(state["dev_casc"], dev_raw,
                                                   pipe.frontend.log2_decim)}
-    demods = pipe.channel_states(state)
+    demods, chans = pipe.channel_states(state), pipe.channel_states(state, "chan")
     for c, (plan, kind, cfg) in enumerate(zip(pipe.plans, pipe.kinds, pipe.demod_cfgs)):
         def channel(c=c, plan=plan, kind=kind, cfg=cfg):
-            _, y = chan.channelize(state["chan"][c], bb, plan)
+            _, y = chan.channelize(chans[c], bb, plan)
             _, result = kind.process(demods[c], y, cfg)
             return kind.adapter(result)
         layers[kind.uri.rsplit(".", 1)[-1]] = channel

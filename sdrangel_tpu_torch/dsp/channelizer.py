@@ -84,33 +84,19 @@ def channelize(
     return dec.run_stages(state, x, plan.signs, order)
 
 
-def _stage_rotation(signs: np.ndarray, length: int, device: torch.device) -> torch.Tensor | None:
-    """Per-channel rotation (C, length) for one stage of a bank; None when
-    every channel takes the centre half. signs: (C,) in {-1, 0, +1}."""
-    if not np.any(signs):
-        return None
-    if length % 4:
-        raise ValueError(f"block length {length} must be a multiple of 4")
-    n = np.arange(4)
-    base = np.stack([np.exp(1j * s * np.pi / 2.0 * n) for s in signs]).astype(np.complex64)
-    return torch.from_numpy(np.tile(base, (1, length // 4))).to(device)
-
-
 def channelize_bank(
     state: dec.CascadeState, x: torch.Tensor, signs: np.ndarray,
     order: int = DOWNCHANNELIZER_ORDER,
 ) -> tuple[dec.CascadeState, torch.Tensor]:
     """A bank with a shared stage depth. x (C, T) complex64 — one stream per
     channel (or the same block broadcast); signs (C, n_stages) from each
-    channel's plan. Returns (state', y (C, T / 2^n_stages))."""
+    channel's plan, each stage's rotations a cached period
+    (`decimators.rotate_bank`). Returns (state', y (C, T / 2^n_stages))."""
     taps = dec._device_taps(order, x.device)
-    signs = np.asarray(signs)
     tails = list(state.tails)
     y = x
-    for k in range(signs.shape[1]):
-        rot = _stage_rotation(signs[:, k], y.shape[-1], x.device)
-        if rot is not None:
-            y = y * rot
+    for k, stage in enumerate(np.asarray(signs).T.tolist()):
+        y = dec.rotate_bank(y, tuple(stage))
         tails[k], y = dec.hb_decimate2(tails[k], y, taps)
     return dec.CascadeState(tuple(tails)), y
 

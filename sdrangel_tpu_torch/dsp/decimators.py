@@ -75,6 +75,30 @@ def rotate(x: torch.Tensor, pattern: torch.Tensor) -> torch.Tensor:
     return (x.reshape(*x.shape[:-1], -1, p) * pattern).reshape(x.shape)
 
 
+@functools.lru_cache(maxsize=None)
+def _bank_rotation(signs: tuple[int, ...], device: torch.device) -> torch.Tensor | None:
+    """(C, 1, 4): one period of e^{i·s·π/2·n} per channel (ones for s = 0);
+    None when every sign is 0."""
+    if not any(signs):
+        return None
+    base = np.stack([[1, 1j * s, -1, -1j * s] if s else [1, 1, 1, 1] for s in signs]
+                    ).astype(np.complex64)
+    return torch.from_numpy(base[:, None, :]).to(device)
+
+
+def rotate_bank(y: torch.Tensor, signs: tuple[int, ...]) -> torch.Tensor:
+    """A bank's quarter-rate rotations: y (C, T), row c times
+    e^{i·signs[c]·π/2·n} — `rotate` by `_rotation_base(signs[c])`, a row of
+    sign 0 times ones — from a cached period; y itself when every sign is 0."""
+    rot = _bank_rotation(signs, y.device)
+    if rot is None:
+        return y
+    c, t = y.shape
+    if t % 4:
+        raise ValueError(f"block length {t} must be a multiple of 4")
+    return (y.reshape(c, t // 4, 4) * rot).reshape(c, t)
+
+
 def hb_decimate2(
     tail: torch.Tensor, x: torch.Tensor, taps: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -84,27 +84,6 @@ def init_state(n_stages: int, device: torch.device, batch_shape=(),
         for _ in range(n_stages)))
 
 
-@functools.lru_cache(maxsize=None)
-def _bank_rotation(signs: tuple[int, ...], device: torch.device) -> torch.Tensor | None:
-    """(C, 1, 4) one period of e^{i·s·π/2·n} per channel (ones for s = 0);
-    None when every sign is 0."""
-    if not any(signs):
-        return None
-    base = np.stack([[1, 1j * s, -1, -1j * s] if s else [1, 1, 1, 1] for s in signs]
-                    ).astype(np.complex64)
-    return torch.from_numpy(base[:, None, :]).to(device)
-
-
-def _rotate_bank(y: torch.Tensor, signs: tuple[int, ...]) -> torch.Tensor:
-    rot = _bank_rotation(signs, y.device)
-    if rot is None:
-        return y
-    c, t = y.shape
-    if t % 4:
-        raise ValueError(f"block length {t} must be a multiple of 4")
-    return (y.reshape(c, t // 4, 4) * rot).reshape(c, t)
-
-
 def upchannelize(
     state: CascadeState, x: torch.Tensor, plan: ChannelPlan,
     order: int = UPCHANNELIZER_ORDER,
@@ -134,7 +113,7 @@ def upchannelize_bank(
     y = x
     for k in reversed(range(signs.shape[1])):
         tails[k], y = hb_interpolate2(tails[k], y, order)
-        y = _rotate_bank(y, tuple(int(-s) for s in signs[:, k]))
+        y = dec.rotate_bank(y, tuple(int(-s) for s in signs[:, k]))
     return CascadeState(tuple(tails)), y
 
 

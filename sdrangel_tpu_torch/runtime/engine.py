@@ -2,9 +2,9 @@
 
 Per block: ingest (int16 → K1 directly on the fused i16 path, else
 normalize + DC/IQ correction), the ÷2^k device decimation on K1, then for
-each channel the channelizer cascade, and for each group of channels the
-demodulator — one batched call over a bank of channels that share a kind,
-a plan depth and settings — plus the spectrum and scope taps of the
+each group of channels the channelizer cascade and the demodulator — one
+batched cascade and one batched call over a bank of channels that share a
+kind, a plan depth and settings — plus the spectrum and scope taps of the
 baseband. Everything runs on the pipeline's
 `torch.device`; on the card the ops queue asynchronously, and `run` reads
 block N back while block N+1 is already queued. A block's outputs leave the
@@ -40,9 +40,13 @@ LAYERS = (DECIMATE, CHANNELIZE, DEMOD, TAPS, PACK) = (
 FETCH_WAIT = "rx fetch wait"
 #: counters: host memory pinned for a copy; bytes of input handed to a device
 PINNED_BYTES, FED_BYTES = "pinned bytes", "fed bytes"
-#: counters: the channels a step ran; those of them that ran in a bank of
-#: two or more (one `process` call over their stacked inputs)
-RX_CHANNELS, RX_BANKED = "rx channels", "rx banked channels"
+#: counters: the channels a step ran; those of them whose demod ran in a
+#: bank of two or more (one `process` call over their stacked inputs); those
+#: whose channelizer ran in such a bank (one cascade over their stacked tails)
+RX_CHANNELS, RX_BANKED, RX_CHAN_BANKED = (
+    "rx channels", "rx banked channels", "rx chan banked channels")
+#: the state entries kept one a group, a bank's stacking its channels' rows
+GROUP_STATES = ("chan", "demod")
 
 
 def pin_f32_precision() -> None:
@@ -93,17 +97,24 @@ class ChannelSpec:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class DemodGroup:
-    """Channels that run one demod `process` (`registry.bank_groups`): a
-    bank, whose state, input and arguments stack its channels' on a leading
-    axis, or one channel alone, run as a one-channel pipeline runs it."""
+    """Channels that run one channelizer cascade and one demod `process`
+    (`registry.bank_groups`): a bank, whose states, input and arguments stack
+    its channels' on a leading axis, or one channel alone, run as a
+    one-channel pipeline runs it."""
 
     idxs: tuple[int, ...]  # the channels, in the pipeline's order
     kind: ChannelKind
     cfgs: tuple  # each channel's bound config
+    plans: tuple  # each channel's chan.ChannelPlan, all of one depth
 
     @property
     def batched(self) -> bool:
         return len(self.idxs) > 1
+
+    @functools.cached_property
+    def signs(self) -> np.ndarray:
+        """(C, depth): each channel's plan signs, the bank cascade's rotations."""
+        return np.array([p.signs for p in self.plans], np.int64).reshape(len(self.plans), -1)
 
     @functools.cached_property
     def cfg(self):
@@ -119,6 +130,18 @@ class DemodGroup:
         return self.kind.make_state(self.cfg, device,
                                     *([(len(self.idxs),)] if self.batched else []))
 
+    def make_chan_state(self, device: torch.device) -> dec.CascadeState:
+        return chan.init_state(self.signs.shape[1], device,
+                               batch_shape=(len(self.idxs),) if self.batched else ())
+
+    def channelize(self, cstate: dec.CascadeState, bb: torch.Tensor):
+        """The group's channels out of the baseband bb (T,): a bank's in one
+        cascade over its stacked tails, (C, T / 2^depth); one channel's as
+        a one-channel pipeline, (T / 2^depth,)."""
+        if not self.batched:
+            return chan.channelize(cstate, bb, self.plans[0])
+        return chan.channelize_bank(cstate, bb.expand(len(self.idxs), bb.shape[-1]), self.signs)
+
     def rows(self, tree: Any) -> list:
         """Each channel's part of a group state: a bank's rows as views."""
         if not self.batched:
@@ -126,7 +149,7 @@ class DemodGroup:
         return [tree_map(lambda x, j=j: x[j], tree) for j in range(len(self.idxs))]
 
     def stack(self, trees: list) -> Any:
-        """Per-channel states or inputs as the group's."""
+        """Per-channel states as the group's."""
         return tree_map(lambda *rows: torch.stack(rows), *trees) if self.batched else trees[0]
 
     def block_args(self, dyn: list[dict] | None, device: torch.device) -> dict:
@@ -189,7 +212,8 @@ class RxPipeline:
                 kw["block_in"] = self.base_block >> len(plan.signs)
             self.demod_cfgs.append(kind.config_cls(**kw))
         self.groups = [
-            DemodGroup(idxs, self.kinds[idxs[0]], tuple(self.demod_cfgs[i] for i in idxs))
+            DemodGroup(idxs, self.kinds[idxs[0]], tuple(self.demod_cfgs[i] for i in idxs),
+                       tuple(self.plans[i] for i in idxs))
             for idxs in bank_groups(
                 (c.uri, len(p.signs), c.settings) for c, p in zip(channels, self.plans))]
         self.n_banked = sum(len(g.idxs) for g in self.groups if g.batched)
@@ -253,19 +277,22 @@ class RxPipeline:
                 dec.init_flat_state(k, self.device, raw=self.fused_ingest)
                 if k else dec.init_state(0, self.device)
             ),
-            "chan": [chan.init_state(len(p.signs), self.device) for p in self.plans],
             # one a group: a bank's state stacks its channels' states
+            "chan": [g.make_chan_state(self.device) for g in self.groups],
             "demod": [g.make_state(self.device) for g in self.groups],
         }
 
-    def channel_states(self, state: dict) -> list:
-        """Each channel's demod state, in the channels' order: a bank's rows
-        as views of its stacked state."""
+    def channel_states(self, state: dict, key: str = "demod") -> list:
+        """Each channel's demod (or, with key "chan", channelizer) state, in
+        the channels' order: a bank's rows as views of its stacked state."""
         per = [None] * len(self.channel_specs)
-        for g, dstate in zip(self.groups, state["demod"]):
-            for i, row in zip(g.idxs, g.rows(dstate)):
+        for g, gstate in zip(self.groups, state[key]):
+            for i, row in zip(g.idxs, g.rows(gstate)):
                 per[i] = row
         return per
+
+    def _per_channel(self, state: dict) -> dict:
+        return dict(state, **{k: self.channel_states(state, k) for k in GROUP_STATES})
 
     def state_from_numpy(self, tree: dict) -> dict:
         """The JAX RxPipeline's state (fetched as numpy, e.g. with
@@ -274,18 +301,18 @@ class RxPipeline:
         states hold crosses over, sync AM's, the AF squelch's, broadcast
         FM's and the data channels' included. A complex64 flat tail
         becomes the fused-ingest int16 raw tail (×32768, exact for values
-        that came from int16). The channels' demod states, one a channel
-        as JAX keeps them, are stacked into their banks."""
-        init = self.init_state()
-        per = tree_from_numpy(dict(init, demod=self.channel_states(init)), tree)
-        return dict(per, demod=[g.stack([per["demod"][i] for i in g.idxs])
-                                for g in self.groups])
+        that came from int16). The channels' channelizer and demod states,
+        one a channel as JAX keeps them, are stacked into their banks."""
+        per = tree_from_numpy(self._per_channel(self.init_state()), tree)
+        return dict(per, **{k: [g.stack([per[k][i] for i in g.idxs]) for g in self.groups]
+                            for k in GROUP_STATES})
 
     def state_to_numpy(self, state: dict) -> dict:
         """This pipeline's state as numpy in the JAX package's field types:
         NCO phases as uint32, the int16 raw tail as the complex64 tail, and
-        one demod state a channel, in the channels' order."""
-        return tree_to_numpy(dict(state, demod=self.channel_states(state)))
+        one channelizer and one demod state a channel, in the channels'
+        order."""
+        return tree_to_numpy(self._per_channel(state))
 
     def default_dyn(self) -> list[dict]:
         """Per-channel overrides initialized from the bound configs."""
@@ -319,15 +346,13 @@ class RxPipeline:
                     dev_state, bb = dec.decimate_cascade(state["dev_casc"], x, 0, f.fc_pos)
 
         n = len(self.channel_specs)
-        chan_states, demod_states, outs = [None] * n, [], [None] * n
-        for g, dstate in zip(self.groups, state["demod"]):
-            kind, cfg, ys = g.kind, g.cfg, []
-            for i in g.idxs:
-                with tracing.span(CHANNELIZE):
-                    chan_states[i], y = chan.channelize(state["chan"][i], bb, self.plans[i])
-                ys.append(y)
+        chan_states, demod_states, outs = [], [], [None] * n
+        for g, cstate, dstate in zip(self.groups, state["chan"], state["demod"]):
+            kind, cfg = g.kind, g.cfg
+            with tracing.span(CHANNELIZE):
+                cstate, y = g.channelize(cstate, bb)  # a bank's channels as rows
+            chan_states.append(cstate)
             with tracing.span(DEMOD):
-                y = g.stack(ys)  # a bank's channels as the rows of one block
                 d = g.block_args(dyn, self.device)
                 dstate, result = kind.process(dstate, y, cfg, **d)
                 entry = ({"data": kind.adapter(result)} if kind.output == "data"
@@ -341,6 +366,7 @@ class RxPipeline:
             demod_states.append(dstate)
         tracing.count(RX_CHANNELS, n)
         tracing.count(RX_BANKED, self.n_banked)
+        tracing.count(RX_CHAN_BANKED, self.n_banked)
 
         with tracing.span(TAPS):
             spec_state, bb_spectrum = dsp_spectrum.power_spectrum(

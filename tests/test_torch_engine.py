@@ -15,10 +15,11 @@ in one pipeline; WFM asks for 250 kHz): each channel's audio within 2e-5
 of the JAX audio's block peak, its power and squelch meter as JAX's; the
 block-size solver equal to the JAX engine's, raising where it raises.
 
-Demod banks: 16 NFM channels on the nfm16 raster (two banks) and a mix that
-groups by kind, plan depth and settings, each against one one-channel
+Channel banks: 16 NFM channels on the nfm16 raster (two banks) and a mix
+that groups by kind, plan depth and settings, each against one one-channel
 pipeline a channel (a bank's rows within 1e-6 of the block's peak, a group
-of one bit for bit, NCO phases exact, the same packed layout); live
+of one bit for bit, NCO phases exact, channelizer tails in the JAX layout
+alike, the same packed layout); live
 overrides reach their own row of a bank as in the JAX step.
 """
 
@@ -319,7 +320,9 @@ def _against_one_channel_pipelines(frontend, specs, groups, carriers, n_blocks=3
     one-channel pipeline a spec in spec order: a bank's rows within 1e-6 of
     the block's peak (power within 1e-6 relative, squelch equal), a group of
     one bit for bit, the NCO phases exact; its packed layout is that of the
-    one-channel outputs in spec order. Returns the bank pipeline."""
+    one-channel outputs in spec order. After the last block each channel's
+    channelizer tails in the JAX layout equal its pipeline's, a bank's
+    within 1e-6 of their peak. Returns the bank pipeline and its state."""
     pipe = peng.RxPipeline(frontend, specs, CPU, block_size=32_768)
     assert [g.idxs for g in pipe.groups] == groups
     assert pipe.n_banked == sum(len(g) for g in groups if len(g) > 1)
@@ -352,22 +355,32 @@ def _against_one_channel_pipelines(frontend, specs, groups, carriers, n_blocks=3
         assert pipe.out_layout == layout
     assert opened, "no banked channel's squelch opened: nothing to compare"
     back = pipe.state_to_numpy(state)
-    assert len(back["demod"]) == len(specs)
+    assert len(back["demod"]) == len(back["chan"]) == len(specs)
     for i, one in enumerate(ones):
-        assert back["demod"][i].nco.phase == one.state_to_numpy(states[i])["demod"][0].nco.phase
-    return pipe
+        alone = one.state_to_numpy(states[i])
+        assert back["demod"][i].nco.phase == alone["demod"][0].nco.phase
+        assert len(back["chan"][i].tails) == len(alone["chan"][0].tails) > 0
+        for got, want in zip(back["chan"][i].tails, alone["chan"][0].tails):
+            if i not in banked:
+                np.testing.assert_array_equal(got, want)
+            else:
+                assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max(), f"channel {i}"
+    return pipe, state
 
 
 def test_bank_matches_one_channel_pipelines():
     """The nfm16 raster: 16 NFM channels in two banks, carriers on every
     other channel, the rest squelched, against 16 one-channel pipelines
-    over 3 blocks; its state round-trips through the JAX layout."""
+    over 3 blocks; a bank's channelizer tails are stacked one row a
+    channel, and its state after the blocks round-trips through the JAX
+    layout."""
     specs = [peng.ChannelSpec(NFM, f, {"squelch_db": -60.0}) for f in NFM16]
-    pipe = _against_one_channel_pipelines(
+    pipe, state = _against_one_channel_pipelines(
         peng.DeviceConfig(1_250_000.0, log2_decim=1), specs,
         [(0, 1, 3, 4, 6, 7, 8, 9, 11, 12, 14, 15), (2, 5, 10, 13)],
         [(NFM, f) for f in NFM16[::2]])
-    state = pipe.init_state()
+    assert [tuple(s.shape) for s in state["chan"][0].tails] == [(12, 46)] * 3
+    assert len(pipe.state_to_numpy(state)["chan"]) == 16
     handed = pipe.state_from_numpy(pipe.state_to_numpy(state))
     for a, b in zip(jax.tree.leaves(pipe.state_to_numpy(handed)),
                     jax.tree.leaves(pipe.state_to_numpy(state))):

@@ -4,17 +4,20 @@
 through both packages from the same non-zero state and are held to the JAX
 output and to the numpy convolution oracle at 2e-5 absolute (f32 sums taken
 in another order; the Pallas decimator's tolerance). The channel banks are
-held to the JAX banks at the same tolerance.
+held to the JAX banks at the same tolerance, and a bank with mixed signs
+to one `channelize` a channel within 1e-6 of the peak.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from sdrangel_tpu.dsp import channelizer as jchan
 from sdrangel_tpu.dsp import pfb as jpfb
 from sdrangel_tpu_torch.dsp import channelizer as pchan
+from sdrangel_tpu_torch.dsp import decimators as pdec
 from sdrangel_tpu_torch.dsp import pfb as ppfb
 from torch_port_util import CPU, n, t
 
@@ -96,6 +99,39 @@ def test_channelize_bank_streams_like_jax():
         np.testing.assert_allclose(n(py), np.asarray(jy), atol=ATOL)
     for a, b in zip(ps.tails, js.tails):
         np.testing.assert_allclose(n(a), np.asarray(b), atol=ATOL)
+
+
+def test_channelize_bank_mixed_signs_equals_separate_channels():
+    """Signs −1, 0 and +1 at every stage: the bank over 3 streamed blocks
+    equals one `channelize` a channel within 1e-6 of the peak; its first
+    stage's rotation equals `decimators.rotate` a channel bit for bit; every
+    stage's rotation period comes from the cache after the first block."""
+    rng = np.random.default_rng(6)
+    signs = np.array([[1, -1, 0], [-1, 0, 1], [0, 1, -1], [1, 1, 1], [-1, -1, 0]])
+    c = len(signs)
+    plans = [pchan.ChannelPlan(tuple(int(v) for v in row), 8, 1.0, 0.0) for row in signs]
+    bank = pchan.init_state(3, CPU, batch_shape=(c,))
+    ones = [pchan.init_state(3, CPU) for _ in range(c)]
+    first = tuple(int(v) for v in signs[:, 0])
+    for b in range(3):
+        x = t(np.stack([_noise(rng, 1024) for _ in range(c)]))
+        rotated = pdec.rotate_bank(x, first)
+        for i, sign in enumerate(first):
+            want = pdec.rotate(x[i], pdec._rotation_base(sign, CPU)) if sign else x[i]
+            assert torch.equal(rotated[i], want)
+        before = pdec._bank_rotation.cache_info()
+        bank, yb = pchan.channelize_bank(bank, x, signs)
+        after = pdec._bank_rotation.cache_info()
+        if b:  # the periods of the first block, from the cache
+            assert (after.misses, after.hits) == (before.misses, before.hits + 3)
+        assert yb.shape == (c, 128)
+        for i in range(c):
+            ones[i], yi = pchan.channelize(ones[i], x[i], plans[i])
+            peak = np.abs(n(yi)).max()
+            assert np.abs(n(yb[i]) - n(yi)).max() <= 1e-6 * peak, f"channel {i}"
+    for k in range(3):
+        want = np.stack([n(one.tails[k]) for one in ones])
+        assert np.abs(n(bank.tails[k]) - want).max() <= 1e-6 * np.abs(want).max()
 
 
 def test_channelize_bank_unique_streams_like_jax():

@@ -4,10 +4,11 @@ With no profiler running, no span enters a `record_function` and nothing is
 tallied, in the Rx step, the bank gear's step and the host feed. Under
 `torch.profiler` (CPU activity), a 2-channel NFM RxPipeline over 2 blocks
 shows each of `engine.LAYERS` on the profiler's timeline and tallies one
-channelizer span a channel and block and one demod span a demod group (its
-two channels, at one plan depth, run as one bank) and block; a 16-channel
-pipeline at the nfm16 traffic's offsets counts its 16 channels a block,
-all of them banked, and a one-channel pipeline 1 and none; the gear's step
+channelizer span and one demod span a group (its two channels, at one plan
+depth, run as one bank) and block; a 16-channel pipeline at the nfm16
+traffic's offsets counts its 16 channels a block, all of them banked in
+the channelizer and in the demod, and a one-channel pipeline 1 and none;
+the gear's step
 shows the `sharded.LAYERS` it runs; `shard_block` counts the bytes it hands each
 shard. On the card (`cuda`), `fetch` tallies its wait and the pinned
 buffers of the upload and the read-back.
@@ -93,7 +94,8 @@ def profiled_pipe():
 def test_profiled_step_shows_each_layer(layer, profiled_pipe):
     pipe, (names, (spans, _)) = profiled_pipe
     assert layer in names
-    per_block = {engine.CHANNELIZE: len(CHANNELS), engine.DEMOD: len(pipe.groups)}.get(layer, 1)
+    # the channelizer and the demod run once a group: a bank is one cascade
+    per_block = {engine.CHANNELIZE: len(pipe.groups), engine.DEMOD: len(pipe.groups)}.get(layer, 1)
     assert len(pipe.groups) == 1  # the two channels share a kind, a depth and settings
     calls, seconds = spans[layer]
     assert calls == per_block * BLOCKS and seconds > 0
@@ -115,6 +117,7 @@ def test_profiled_step_counts_banked_channels(offsets, banked):
     _, (_, counters) = _profiled(lambda: _run_pipe(pipe))
     assert counters[engine.RX_CHANNELS] == len(offsets) * BLOCKS
     assert counters.get(engine.RX_BANKED, 0) == banked * BLOCKS
+    assert counters.get(engine.RX_CHAN_BANKED, 0) == banked * BLOCKS
 
 
 def test_profiled_upload_counts_fed_bytes(profiled_pipe):
