@@ -100,6 +100,17 @@ _log = logging.getLogger(__name__)
 #: the Rx worker's spans: the block's read from its source, and the
 #: read-back and publishing of a burst of blocks
 READ, PUBLISH = "session read", "session publish"
+#: the Rx worker's counters: blocks queued, and those queued on a stream
+#: of the set's own (on a card; none on the CPU, which has no streams)
+BLOCKS, OWN_STREAM_BLOCKS = "session blocks", "session own-stream blocks"
+#: held while a Rx worker enqueues a step on a card. A step is some 500
+#: launches from Python, each handing the interpreter lock over: workers
+#: that enqueue at once hand it over op by op, and four 10 MS/s sets did 16
+#: MS/s together where one alone kept up with 40 (H100). So one worker of
+#: the process enqueues at a time; the card still runs their streams side
+#: by side. On the CPU a step computes inside torch's ops, and the steps
+#: of several sets overlap without it.
+_ENQUEUE = threading.Lock()
 
 #: available source kinds (the DeviceEnumerator role: software sources only)
 SOURCE_KINDS = {
@@ -611,6 +622,9 @@ class DeviceSet:
         self._thread.start()
 
     def stop(self) -> None:
+        """Stop the worker and wait for it; on a card the worker waits for
+        its stream before the generation's tensors are dropped, so a
+        restart frees no memory that queued work still reads."""
         self._stop.set()
         if self._thread is not None:
             # a first block on a fresh machine includes the kernel build
@@ -729,26 +743,35 @@ class DeviceSet:
 
     def _work(self) -> None:
         """Each worker runs generations until a stop, an error or a flip of
-        `sharded`, which hands over to the other."""
+        `sharded`, which hands over to the other. On a card the one-pipeline
+        worker queues everything on a stream of its own, made here on the
+        set's device: one set's read-back then waits for its own blocks
+        only, and the sets' blocks overlap. The sharded gear feeds its mesh
+        through the mesh's own events."""
         try:
+            stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
             while not self._stop.is_set() and not self.error:
                 if self.source.sharded:
                     self._work_sharded()
                 else:
-                    self._work_regular()
+                    with torch.cuda.stream(stream):
+                        self._work_regular(stream)
         finally:
             self.running = False
 
-    def _work_regular(self) -> None:
+    def _work_regular(self, stream: torch.cuda.Stream | None) -> None:
         """The engine thread: gotoRunning → block loop → gotoIdle
         (dspdevicesourceengine.cpp:325-408). The outer loop is a settings
         generation: a static change ends the block loop, the pending blocks
-        are published, and the pipeline is rebuilt at the same position."""
+        are published, and the pipeline is rebuilt at the same position.
+        `stream`: the worker's own, current while this runs (None on the
+        CPU)."""
         egress = _Egress()
         recorder = None  # ((path, rate, centre), SdriqWriter)
         pos = 0  # device-rate sample position, kept across rebuilds
         t_start = None  # the run's first queued block (host clock)
         signal_s = 0.0  # seconds of signal published in this run
+        enqueue = _ENQUEUE if stream is not None else contextlib.nullcontext()
         try:
             while not self._stop.is_set():
                 with self._lock:
@@ -808,7 +831,11 @@ class DeviceSet:
                         recorder[1].write(_to_i16_record(raw, pipe.frontend.input_format))
                     if isinstance(raw, np.ndarray):
                         raw = pipe.upload(raw)
-                    state, flat = pipe.step_packed(state, raw, dyn)
+                    with enqueue:
+                        state, flat = pipe.step_packed(state, raw, dyn)
+                    tracing.count(BLOCKS, 1)
+                    if stream is not None and torch.cuda.current_stream(self.device) == stream:
+                        tracing.count(OWN_STREAM_BLOCKS, 1)
                     pending.append(flat)
                     pos += pipe.device_block
                     # read a burst back once the block after it is queued,
@@ -824,6 +851,12 @@ class DeviceSet:
         except Exception as e:  # StError (dspdevicesourceengine.h:28)
             self.error = f"{type(e).__name__}: {e}"
         finally:
+            if stream is not None:
+                # an error can leave blocks queued that read this
+                # generation's tensors: they finish before the tensors drop
+                # (a failed launch raises here again; the sinks still close)
+                with contextlib.suppress(RuntimeError):
+                    stream.synchronize()
             egress.close()
             if recorder is not None:
                 recorder[1].close()
